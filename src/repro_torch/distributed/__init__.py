@@ -1,0 +1,2 @@
+from repro_torch.distributed.sharding import (host_submesh,  # noqa: F401
+                                              stream_shard_placement)

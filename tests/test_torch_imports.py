@@ -1,0 +1,130 @@
+"""The port stands alone: importing it pulls in neither ``jax`` nor the
+JAX package, and without a GPU its entry points raise instead of carrying
+on on the CPU."""
+
+import os
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core.paragrapher import open_graph, save_graph
+from repro_torch.data import stream_partitions
+from repro_torch.distributed import host_submesh, stream_shard_placement
+from repro_torch.graph import rmat
+from repro_torch.kernels.compbin_decode import decode_packed_stream
+from repro_torch.kernels.utils import resolve_device
+from repro_torch.query import NeighborQueryEngine
+
+SRC = pathlib.Path(repro_torch.__file__).resolve().parents[1]
+
+
+def _submodules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_slice_module_is_present():
+    mods = set(_submodules())
+    for want in ("core.csr", "core.compbin", "core.webgraph", "core.codec",
+                 "core.pgfuse", "core.policy", "core.paragrapher",
+                 "obs.trace", "obs.metrics", "obs.report", "kernels.utils",
+                 "kernels.build", "kernels.compbin_decode.ref",
+                 "kernels.compbin_decode.kernel", "kernels.compbin_decode.ops",
+                 "graph.generators", "graph.partition", "data.prefetch",
+                 "data.graph_stream", "distributed.sharding", "query.window",
+                 "query.engine", "convert"):
+        assert f"repro_torch.{want}" in mods, want
+    assert (SRC / "repro_torch" / "csrc" / "compbin_decode.cu").is_file()
+
+
+def test_importing_the_port_imports_neither_jax_nor_repro():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {_submodules()!r}\n"
+        "import repro_torch\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('imported', len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, timeout=120,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("imported")
+
+
+def test_no_source_file_of_the_port_names_jax_imports():
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        text = path.read_text()
+        for needle in ("import jax", "from jax", "import repro\n",
+                       "from repro ", "from repro."):
+            assert needle not in text, (path, needle)
+
+
+def test_device_none_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        host_submesh(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream_shard_placement(None, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_packed_stream(np.zeros(6, np.uint8), 3)
+    path = str(tmp_path / "g.cbin")
+    save_graph(path, rmat(6, 4, seed=0))
+    with open_graph(path) as g:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stream_partitions(g)
+        for decode in ("device", "auto"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                NeighborQueryEngine(g, decode=decode)
+
+
+def test_cpu_must_be_asked_for_by_name():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert host_submesh("cpu") == torch.device("cpu")
+    assert stream_shard_placement("cpu", 10) == (torch.device("cpu"),) * 2
+    with pytest.raises(ValueError):
+        host_submesh("cpu", process_index=3, process_count=2)
+    ids, h2d = decode_packed_stream(np.array([1, 0, 0, 2, 1, 0], np.uint8), 3,
+                                    device="cpu")
+    np.testing.assert_array_equal(ids, [1, 258])
+    assert h2d == 1024 * 3
+
+
+def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a CUDA toolkit is installed: the build would succeed")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library("compbin_decode")       # no fallback, it raises
+    with pytest.raises(FileNotFoundError):
+        build.load_library("no_such_kernel")
+    assert sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")) == \
+        ["compbin_decode"]
+    assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+def test_metrics_namespace_matches_the_ported_stats_surfaces():
+    from repro_torch.obs.metrics import metrics_drift
+    unported = ("traversal", "router", "hotset")
+    drift = [m for m in metrics_drift() if not m.startswith(unported)]
+    assert drift == []      # query.*, stream.*, pgfuse.* are in sync
