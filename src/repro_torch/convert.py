@@ -1,9 +1,9 @@
 """Small bridges between numpy and the port's types.
 
 The graph file is the state both packages share (same bytes on disk);
-these functions put in-memory values on one footing too.  They take and
-return numpy, so a test can hand them the JAX package's outputs without
-this package importing it.
+these functions put in-memory values on one footing too.  They take
+numpy, so a test can hand them the JAX package's outputs without this
+package importing it.
 """
 
 from __future__ import annotations
@@ -11,8 +11,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.csr import CSR
+from repro_torch.kernels.utils import resolve_device
 
 
 def csr_from_numpy(offsets, neighbors) -> CSR:
@@ -44,3 +46,13 @@ def stats_ints(stats) -> dict:
         elif isinstance(v, dict):
             out[f.name] = {k: int(n) for k, n in v.items()}
     return out
+
+
+def gcn_params_from_numpy(params: dict, device=None) -> dict:
+    """The JAX package's GCN params (``{"w0": ..., "b0": ..., ...}`` as
+    numpy arrays, e.g. ``{k: np.asarray(v) for k, v in jax_params.items()}``)
+    as the port's params dict: the same keys, float32 tensors on
+    ``device`` (None = the GPU, raises without one)."""
+    device = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in params.items()}

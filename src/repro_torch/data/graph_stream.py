@@ -10,13 +10,11 @@ not host RAM:
       -> read_async over PG-Fuse        producer pool, bounded buffers,
                                         sequential block readahead
       -> raw packed neighbor bytes      CompBin: NO host decode
+      -> feature rows (stream_features) core.featstore through the SAME
+                                        PG-Fuse mount, per vertex range
       -> double-buffered H2D transfer   PrefetchIterator staging thread
       -> on-device CUDA decode          kernels/compbin_decode, eq. (1)
-      -> per-partition CSR shards       resident in HBM on ``device``
-
-(The feature-row and label stages of the JAX package's loader ride on
-``core/featstore.py``, which this port does not hold yet: passing
-``feature_path`` or ``label_path`` raises ``NotImplementedError``.)
+      -> per-partition CSR shards (+x)  resident in HBM on ``device``
 
 For CompBin with b <= 4 the packed stream crosses the host->device link
 undecoded, so the (4-b)/4 byte saving the paper claims for storage also
@@ -64,8 +62,11 @@ class StreamedShard:
     offsets: torch.Tensor     # int64[v1-v0+1], rebased to 0, on the device
     neighbors: torch.Tensor   # int32[n_edges] on the device
     n_edges: int
-    x: Optional[torch.Tensor] = None  # feature rows (stage not ported yet:
-    y: Optional[torch.Tensor] = None  # always None, as are label rows)
+    x: Optional[torch.Tensor] = None  # float[v1-v0, d] feature rows, when
+                                      # a feature store is streamed alongside
+    y: Optional[torch.Tensor] = None  # u8[v1-v0, 2] label family rows
+                                      # ([class id, train-mask flag]), when a
+                                      # label store is streamed alongside
 
     @property
     def n_vertices(self) -> int:
@@ -200,10 +201,6 @@ class GraphStream:
         if not 0 <= process_index < process_count:
             raise ValueError(
                 f"process_index {process_index} not in [0, {process_count})")
-        if feature_path is not None or label_path is not None:
-            raise NotImplementedError(
-                "feature_path / label_path need repro_torch.core.featstore, "
-                "which is not ported yet")
         self._graph = graph
         # where shards live: None = the GPU; raises here, before any
         # thread starts, when there is none
@@ -228,6 +225,40 @@ class GraphStream:
             graph.format, graph.bytes_per_id)
         self.stats = StreamStats(decode_mode=self.decode_plan.mode,
                                  decode_reason=self.decode_plan.reason)
+        # stream_features stage: the node-feature store rides the same
+        # PG-Fuse mount as the topology (shared memory budget + readahead
+        # policy, its own per-file block cache and stats)
+        self._features = None
+        self._feat0 = pgfuse.PGFuseStats()
+        if feature_path is not None:
+            from repro_torch.core import featstore
+            self._features = featstore.open_featstore(feature_path,
+                                                      fs=graph.fs)
+            if self._features.n_rows != graph.n_vertices:
+                self._features.close()
+                raise ValueError(
+                    f"feature store {feature_path} has "
+                    f"{self._features.n_rows} rows for a graph of "
+                    f"{graph.n_vertices} vertices")
+            self._feat0 = self._features.pgfuse_stats() or pgfuse.PGFuseStats()
+        # the label/mask column family rides the same mount the same way
+        self._labels = None
+        if label_path is not None:
+            from repro_torch.core import featstore
+            try:
+                self._labels = featstore.open_featstore(label_path,
+                                                        fs=graph.fs)
+            except BaseException:
+                if self._features is not None:
+                    self._features.close()
+                raise
+            if self._labels.n_rows != graph.n_vertices:
+                self._labels.close()
+                if self._features is not None:
+                    self._features.close()
+                raise ValueError(
+                    f"label store {label_path} has {self._labels.n_rows} "
+                    f"rows for a graph of {graph.n_vertices} vertices")
         self._n_expected = len(self.plan)
         self._closed = False
         self._drop = threading.Event()   # tells the callback to discard
@@ -329,8 +360,47 @@ class GraphStream:
             torch.cuda.current_stream(dev).synchronize()
         self.stats.decode_s += time.perf_counter() - t0
         self.stats.bytes_h2d += h2d + offs.nbytes
+        # the feature stage runs OUTSIDE the decode timer: its cost is
+        # feature_read_s, not decode_s
+        x = self._stream_features(v0, v1)
+        y = self._stream_labels(v0, v1)
         return StreamedShard(v0=v0, v1=v1, offsets=offsets,
-                             neighbors=neighbors, n_edges=n)
+                             neighbors=neighbors, n_edges=n, x=x, y=y)
+
+    def _to_device(self, rows: np.ndarray) -> torch.Tensor:
+        """Per-vertex rows (like offsets) to the shard's device, the copy
+        finished before the shard is handed on."""
+        out = torch.from_numpy(rows).to(self._off_device)
+        if self._off_device.type == "cuda":
+            torch.cuda.current_stream(self._off_device).synchronize()
+        return out
+
+    def _stream_features(self, v0: int, v1: int):
+        """The stream_features stage: feature rows [v0, v1) from the
+        attached store — PG-Fuse enlarged/cached reads, same staging
+        thread as topology H2D, so feature transfer double-buffers ahead
+        of the consumer exactly like the packed neighbor bytes do."""
+        if self._features is None:
+            return None
+        t0 = time.perf_counter()
+        rows = self._features.read_rows(v0, v1)
+        self.stats.feature_read_s += time.perf_counter() - t0
+        self.stats.feature_rows += rows.shape[0]
+        self.stats.feature_bytes += rows.nbytes
+        x = self._to_device(rows)
+        self.stats.feature_bytes_h2d += rows.nbytes
+        return x
+
+    def _stream_labels(self, v0: int, v1: int):
+        """The second column family: label/mask rows [v0, v1) from the
+        attached store — tiny next to features, but streaming them means
+        full-graph batches carry ZERO synthetic tensors."""
+        if self._labels is None:
+            return None
+        rows = self._labels.read_rows(v0, v1)
+        self.stats.label_rows += rows.shape[0]
+        self.stats.label_bytes += rows.nbytes
+        return self._to_device(rows)
 
     # -- the consumer-facing iterator --------------------------------------
     def __iter__(self) -> "GraphStream":
@@ -357,6 +427,13 @@ class GraphStream:
             self.stats.cache_hits = pg.cache_hits - self._pg0.cache_hits
             self.stats.cache_misses = pg.cache_misses - self._pg0.cache_misses
             self.stats.readahead_blocks = pg.readahead_blocks - self._pg0.readahead_blocks
+        if self._features is not None:
+            fst = self._features.pgfuse_stats()
+            if fst is not None:
+                self.stats.feature_cache_hits = \
+                    fst.cache_hits - self._feat0.cache_hits
+                self.stats.feature_cache_misses = \
+                    fst.cache_misses - self._feat0.cache_misses
 
     def close(self) -> None:
         if self._closed:
@@ -370,6 +447,10 @@ class GraphStream:
             except queue.Empty:
                 break
         self._finalize()
+        if self._features is not None:
+            self._features.close()
+        if self._labels is not None:
+            self._labels.close()
 
     def __enter__(self) -> "GraphStream":
         return self
@@ -399,8 +480,14 @@ def stream_partitions(graph: GraphHandle,
     when the graph is opened (``open_graph(pgfuse_readahead=...)``).
     ``decode_plan`` overrides core.policy's CompBin-vs-WebGraph placement.
 
-    ``feature_path`` / ``label_path`` (the feature-row and label stages)
-    raise ``NotImplementedError`` until the feature store is ported.
+    ``feature_path`` attaches a :mod:`repro_torch.core.featstore`
+    node-feature store: each shard then carries its vertices' feature rows
+    (``x``), read through the graph's PG-Fuse mount and copied to the
+    shard's device alongside the topology (the ``stream_features`` stage;
+    per-stage bytes and cache hit rates land in :class:`StreamStats`).
+    ``label_path`` attaches the label/mask column family the same way
+    (``graph.features.labelstore_for_graph``): shards then carry ``y``
+    ([class id, train-mask] u8 rows).
 
     Multi-host: every process opens the graph itself (its own PG-Fuse
     cache) and passes its ``process_index`` out of ``process_count`` and

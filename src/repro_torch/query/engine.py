@@ -763,8 +763,9 @@ class NeighborQueryEngine:
 
 def gather_rows(store, ids) -> np.ndarray:
     """Feature rows for ``ids`` (duplicates fine) from a feature-store
-    handle (``n_rows``, ``d``, ``dtype``, ``header.row_stride``,
-    ``read_rows``; the store itself is not ported yet), with run-coalesced
+    handle (:class:`repro_torch.core.featstore.FeatureStoreHandle`, or
+    anything with its ``n_rows``, ``d``, ``dtype``, ``header.row_stride``
+    and ``read_rows``), with run-coalesced
     reads: sorted unique ids collapse into contiguous ``read_rows`` calls
     wherever the gap is small, so a clustered id batch costs a handful of
     range reads instead of one per row.

@@ -11,6 +11,7 @@ import torch
 from _torch_pair import assert_csr_equal, port, ref, write_pair
 from repro.data import graph_stream as ref_stream
 from repro_torch.convert import shard_to_numpy, stats_ints
+from repro_torch.core.featstore import read_featstore
 from repro_torch.data import graph_stream as port_stream
 
 #: storage-stage deltas depend on how reader threads interleave with the
@@ -69,7 +70,7 @@ def test_packed_codecs_stream_identically(graph, fmt, n_parts, tmp_path):
         v0, v1, offs, nbrs = shard_to_numpy(s)
         assert (v0, v1) == (s.v0, s.v1) and offs[0] == 0
         assert offs.shape == (s.n_vertices + 1,) and nbrs.shape == (s.n_edges,)
-        assert s.x is None and s.y is None
+        assert s.x is None and s.y is None      # no store attached
 
 
 def test_webgraph_host_arm_streams_identically(graph, tmp_path):
@@ -138,14 +139,48 @@ def test_early_close_exits_promptly(graph, tmp_path):
 
 
 def test_unported_stages_raise_not_implemented(graph, tmp_path):
+    """The feature and label stages are ported: what raises now is a
+    store that does not fit the graph, or a missing one."""
     path = write_pair(tmp_path, graph.offsets, graph.neighbors, "compbin")
+    short = str(tmp_path / "short.fst")
+    port.graph.write_node_features(short, np.zeros((7, 3), np.float32))
     with port.paragrapher.open_graph(path) as g:
-        for kw in ({"feature_path": "x.fst"}, {"label_path": "y.fst"}):
-            with pytest.raises(NotImplementedError, match="featstore"):
+        for kw in ({"feature_path": short}, {"label_path": short}):
+            with pytest.raises(ValueError, match="rows for a graph"):
+                port_stream.stream_partitions(g, "cpu", **kw)
+        for kw in ({"feature_path": str(tmp_path / "x.fst")},
+                   {"label_path": str(tmp_path / "y.fst")}):
+            with pytest.raises(FileNotFoundError):
                 port_stream.stream_partitions(g, "cpu", **kw)
         with pytest.raises(ValueError):
             port_stream.stream_partitions(g, "cpu", process_index=2,
                                           process_count=2)
+
+
+@pytest.mark.parametrize("n_parts", [None, 5])
+def test_feature_and_label_stages_stream_identically(graph, n_parts,
+                                                     tmp_path):
+    path = write_pair(tmp_path, graph.offsets, graph.neighbors, "compbin")
+    fp = ref.graph.featstore_for_graph(path, str(tmp_path / "x.fst"), 12,
+                                       seed=2, data_align=1 << 12)
+    lp = ref.graph.labelstore_for_graph(path, str(tmp_path / "y.lbl"), 5,
+                                        seed=2, data_align=1 << 12)
+    kw = dict(n_parts=n_parts, feature_path=fp, label_path=lp)
+    csr_r, st_r, _ = _run_ref(path, **kw)
+    csr_p, st_p, _, shards = _run_port(path, **kw)
+    assert_csr_equal(csr_p, csr_r)
+    assert _counters(st_p) == _counters(st_r)
+    assert st_p.feature_rows == st_p.label_rows == graph.n_vertices
+    assert st_p.feature_bytes == st_p.feature_bytes_h2d == \
+        graph.n_vertices * 12 * 4
+    assert (st_p.feature_cache_hits, st_p.feature_cache_misses) == \
+        (st_r.feature_cache_hits, st_r.feature_cache_misses)
+    x = port.graph.synthesize_node_features(graph.n_vertices, 12, seed=2)
+    y = read_featstore(lp)
+    for s in shards:
+        assert s.x.dtype == torch.float32 and s.y.dtype == torch.uint8
+        np.testing.assert_array_equal(s.x.numpy(), x[s.v0:s.v1])
+        np.testing.assert_array_equal(s.y.numpy(), y[s.v0:s.v1])
 
 
 def test_empty_graph_streams(tmp_path):

@@ -13,11 +13,13 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.convert import gcn_params_from_numpy
 from repro_torch.core.paragrapher import open_graph, save_graph
 from repro_torch.data import stream_partitions
 from repro_torch.distributed import host_submesh, stream_shard_placement
 from repro_torch.graph import rmat
 from repro_torch.kernels.compbin_decode import decode_packed_stream
+from repro_torch.launch.data_gnn import device_batch
 from repro_torch.kernels.utils import resolve_device
 from repro_torch.query import NeighborQueryEngine
 
@@ -38,9 +40,16 @@ def test_every_slice_module_is_present():
                  "kernels.compbin_decode.kernel", "kernels.compbin_decode.ops",
                  "graph.generators", "graph.partition", "data.prefetch",
                  "data.graph_stream", "distributed.sharding", "query.window",
-                 "query.engine", "convert"):
+                 "query.engine", "convert", "core.featstore",
+                 "graph.features", "graph.sampler",
+                 "kernels.segment_sum.ref", "kernels.segment_sum.kernel",
+                 "kernels.segment_sum.ops", "models.common",
+                 "models.gnn.layers", "models.gnn.gcn", "configs.shapes",
+                 "configs.base", "configs.gcn_cora", "launch.data_gnn",
+                 "launch.steps", "launch.serve"):
         assert f"repro_torch.{want}" in mods, want
-    assert (SRC / "repro_torch" / "csrc" / "compbin_decode.cu").is_file()
+    for kernel in ("compbin_decode", "segment_sum"):
+        assert (SRC / "repro_torch" / "csrc" / f"{kernel}.cu").is_file()
 
 
 def test_importing_the_port_imports_neither_jax_nor_repro():
@@ -92,6 +101,15 @@ def test_device_none_raises_without_cuda(tmp_path):
         for decode in ("device", "auto"):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 NeighborQueryEngine(g, decode=decode)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_batch({"x": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gcn_params_from_numpy({"w0": np.zeros((2, 2), np.float32)})
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import make_gnn_server
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_gnn_server("gcn-cora", get_arch("gcn-cora").make_reduced(),
+                        str(tmp_path / "gnn"))
 
 
 def test_cpu_must_be_asked_for_by_name():
@@ -118,8 +136,10 @@ def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
         build.load_library("compbin_decode")       # no fallback, it raises
     with pytest.raises(FileNotFoundError):
         build.load_library("no_such_kernel")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library("segment_sum")
     assert sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")) == \
-        ["compbin_decode"]
+        ["compbin_decode", "segment_sum"]
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
 
 

@@ -1,8 +1,10 @@
-"""The slice as a whole at small size: the load, serve and LogCSR phases
-of ``chip_smoke.py`` run here with ``device="cpu"`` at scale 10, so what
-the GPU run drives is what these tests ran.  Each phase checks the loaded
-CSR and every query answer against the generated graph bit for bit
-(tolerance ZERO) and raises on any difference."""
+"""The slice as a whole at small size: the load, serve, LogCSR and GCN
+serving phases of ``chip_smoke.py`` run here with ``device="cpu"`` at
+scale 10, so what the GPU run drives is what these tests ran.  Each phase
+checks the loaded CSR and every query answer against the generated graph
+bit for bit (tolerance ZERO), and the served logits against the plain
+CPU path (tolerance ``GNN_TOL``; on the CPU the two are the same code, so
+the error is 0), and raises on any difference."""
 
 import importlib.util
 import pathlib
@@ -92,3 +94,45 @@ def test_main_refuses_to_run_without_a_gpu(smoke, capsys):
     assert smoke.main([]) == 2
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_gnn_phase_on_cpu(smoke, small):
+    _, _, workdir = small
+    out = smoke.phase_gnn("cpu", workdir, scale=10, reduced=True,
+                          n_requests=3, batch=64)
+    assert out["arch"] == "gcn-cora-reduced" and out["vertices"] == 1024
+    assert out["nodes_per_request"] == 64 * (1 + 5 + 25)
+    assert out["edge_slots_per_request"] == 64 * (5 + 25)
+    assert out["max_abs_err"] == 0.0
+    assert out["k1_launches"] == out["k2_launches"] == 0
+    assert out["device_batches"] > 0            # decode="auto" placed some
+    assert len(out["latency_s"]) == 3 and out["p50_s"] <= out["p99_s"]
+    assert {"sample", "gather", "features", "h2d",
+            "compute"} <= set(out["tier_s_per_request"])
+    assert out["edge_dst"].dtype == np.int32
+    assert out["edge_dst"].size == out["edge_slots_per_request"]
+
+
+def test_gnn_phase_detects_wrong_logits(smoke, small, monkeypatch):
+    _, _, workdir = small
+    plain = smoke.gnn_plain_logits
+
+    def off_by_a_little(*args, **kwargs):
+        for logits, dst, n in plain(*args, **kwargs):
+            yield logits + 1e-3, dst, n
+
+    monkeypatch.setattr(smoke, "gnn_plain_logits", off_by_a_little)
+    with pytest.raises(AssertionError, match="served logits differ"):
+        smoke.phase_gnn("cpu", workdir, scale=10, reduced=True,
+                        n_requests=1, batch=16)
+
+
+def test_segment_sum_bound(smoke):
+    # every slot valid: the all-valid figure 358,166,528 B
+    ms, by = smoke.k2_bound_ms(30720, 1433, 31744, 30720)
+    assert by == "bytes"
+    assert ms == pytest.approx(358_166_528 / 3.35e12 * 1e3)
+    # dropped rows of messages need not be read
+    assert smoke.k2_bytes(30720, 1433, 31744, 16436) == \
+        358_166_528 - 4 * (30720 - 16436) * 1433
+    assert smoke.k2_bound_ms(30720, 1, 31744, 0)[1] == "bytes"
