@@ -7,12 +7,15 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
 It builds every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card (the
-decode bit for bit, the segment sum to f32 rounding), drives the port's
-main paths through the library entry points -- load a CompBin graph into
-HBM through PG-Fuse, answer batches of neighbor queries from the same
-file, and serve GCN inference requests at gcn-cora's full width (sample
-through the query engine, gather feature rows from the feature store,
-one transfer, forward pass with the segment-sum kernel) -- checks every
+decode bit for bit, the segment sum to f32 rounding, flash attention to
+the JAX package's kernel tolerances), drives the port's main paths
+through the library entry points -- load a CompBin graph into HBM
+through PG-Fuse, answer batches of neighbor queries from the same file,
+serve GCN inference requests at gcn-cora's full width (sample through
+the query engine, gather feature rows from the feature store, one
+transfer, forward pass with the segment-sum kernel), and serve
+smollm-360m at full width and depth (prefill + greedy decode against a
+KV cache, every attention on the flash-attention kernel) -- checks every
 result against an independent plain computation, and prints what it
 measured.
 
@@ -24,12 +27,15 @@ Any failed phase raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device it exits with code 2 at once.
 
 The load/serve/LogCSR/GNN phases are plain functions of ``device`` and
-``scale`` so the CPU tests run the same code at a small size.
+``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
+n_tokens)``, so the CPU tests run the same code at a small size.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -44,6 +50,7 @@ sys.path.insert(0, os.path.join(_HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import policy  # noqa: E402
 from repro_torch.core.paragrapher import open_graph, save_graph  # noqa: E402
 from repro_torch.data import assemble_csr, stream_partitions  # noqa: E402
@@ -53,6 +60,9 @@ from repro_torch.obs import Tracer, tier_times  # noqa: E402
 from repro_torch.kernels.compbin_decode import (compbin_decode,  # noqa: E402
                                                 compbin_decode_ref,
                                                 stream_bucket_ids)
+from repro_torch.kernels.flash_attention import (attention_bshd,  # noqa: E402
+                                                 attention_ref,
+                                                 flash_attention)
 from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
                                              segment_sum_ref)
 from repro_torch.query import NeighborQueryEngine  # noqa: E402
@@ -61,18 +71,27 @@ from repro_torch.query import NeighborQueryEngine  # noqa: E402
 # kernels' bounds are stated against.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # non-tensor-core rate, used for integer ALU work
+BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core rate
 
 SERVE_BLOCK_SIZE = 1 << 16      # PG-Fuse block for the random-access mount
 TPU_KERNEL = "src/repro/kernels/compbin_decode/kernel.py:53"
 CUDA_SOURCE = "src/repro_torch/csrc/compbin_decode.cu"
 K2_TPU_KERNEL = "src/repro/kernels/segment_sum/kernel.py:57"
 K2_CUDA_SOURCE = "src/repro_torch/csrc/segment_sum.cu"
+K3_TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:96"
+K3_CUDA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 
 #: K2 against its plain version: f32 sums by atomics differ from a
 #: sequential sum by rounding only (the JAX package's test tolerance)
 K2_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2e-1)}
 #: served logits against the plain CPU path on the same block
 GNN_TOL = 1e-5
+#: K3 against its plain version (rtol and atol): the JAX package's own
+#: kernel tolerances; f32 holds only because no product runs in TF32
+K3_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+#: f32 LM logits of the K3 path against the plain path on the card
+#: (rtol and atol): the same weights and prompts, sums in another order
+LM_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -380,6 +399,282 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
             "edge_dst": dst, "n_nodes": n_nodes}
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """Every attention call of the port's transformer on its plain paths
+    (the JAX package's dense / chunked backends), on any device: the
+    yardstick the K3 path is held against."""
+    from repro_torch.models import transformer as tf
+
+    saved = tf.attention
+    tf.attention = tf.attention_plain
+    try:
+        yield
+    finally:
+        tf.attention = saved
+
+
+def attention_f64(q, k, v, q_offset: int) -> torch.Tensor:
+    """Causal GQA attention of [B, S, H, dh] q over the first
+    ``q_offset + S`` positions of [B, T, Hk, dh] k/v, computed densely in
+    float64: the truth both f32 paths are held to."""
+    b, sq, hq, dh = q.shape
+    live = q_offset + sq
+    g = hq // k.shape[2]
+    kd = k[:, :live].double().repeat_interleave(g, 2)
+    vd = v[:, :live].double().repeat_interleave(g, 2)
+    s = torch.einsum("bshd,bthd->bhst", q.double(), kd) * dh ** -0.5
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(live, device=q.device)[None, :]
+    s = s.masked_fill(kpos > qpos, float("-inf"))
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(s, -1), vd)
+
+
+@contextlib.contextmanager
+def shadow_attention(errs: list):
+    """Every attention call of the port's transformer is also computed in
+    float64 on the same q/k/v (the live cache as it is at that step) and
+    by the plain path in the served dtype.  The served output is held to
+    the f64 one at ``K3_TOL`` scaled by max(1, max|v|): the output is a
+    convex combination of V rows, and the served model's V runs to ~60
+    where the JAX package's sweep draws it from N(0, 1).  Appends
+    ``(served error, plain-path error)`` against f64 per call; the plain
+    path launches no kernel."""
+    from repro_torch.models import transformer as tf
+
+    served = tf.attention
+
+    def attention(q, k, v, cfg, *, causal, q_offset=0):
+        out = served(q, k, v, cfg, causal=causal, q_offset=q_offset)
+        truth = attention_f64(q, k, v, q_offset)
+        plain = tf.attention_plain(q, k, v, cfg, causal=causal,
+                                   q_offset=q_offset)
+        err = float((out.double() - truth).abs().max())
+        tol = K3_TOL[out.dtype] * max(1.0, float(
+            v[:, :q_offset + q.shape[1]].abs().max()))
+        assert torch.allclose(out.double(), truth, rtol=tol, atol=tol), \
+            f"served attention != f64 attention (max abs err {err}, " \
+            f"tolerance {tol})"
+        errs.append((err, float((plain.double() - truth).abs().max())))
+        return out
+
+    tf.attention = attention
+    try:
+        yield
+    finally:
+        tf.attention = served
+
+
+def _compare_logits(got_tok, got_l, want_tok, want_l, tol=None) -> dict:
+    """Step-by-step comparison of two greedy runs' last-position logits
+    ([steps, batch, vocab]).  A row is compared up to its first token
+    that differs (after it, the two runs decode other tokens).  With
+    ``tol``, every compared step must agree within it (rtol and atol) and
+    a token may differ only where ``want``'s top two logits lie within
+    ``tol``."""
+    n_tokens, batch, _ = got_l.shape
+    worst, flips, compared = 0.0, [], 0
+    for b in range(batch):
+        for t in range(n_tokens):
+            err = float(np.abs(got_l[t, b] - want_l[t, b]).max())
+            worst = max(worst, err)
+            compared += 1
+            if tol is not None:
+                assert np.allclose(got_l[t, b], want_l[t, b], rtol=tol,
+                                   atol=tol), \
+                    f"K3-path logits differ from the plain path (max {worst})"
+            if got_tok[b, t] != want_tok[b, t]:
+                top2 = np.sort(want_l[t, b])[-2:]
+                margin = float(top2[1] - top2[0])
+                if tol is not None:
+                    assert margin <= tol, \
+                        f"greedy token differs at row {b} step {t} " \
+                        f"(margin {margin})"
+                flips.append({"row": b, "step": t, "margin": margin})
+                break
+    return {"max_abs_err": worst, "flips": flips, "steps_compared": compared,
+            "tokens_equal": float((got_tok == want_tok).mean())}
+
+
+def phase_lm_check(device, cfg, batch: int, prompt_len: int,
+                   n_tokens: int, seed: int = 0, e2e_layers: int = 2) -> dict:
+    """LM serving through ``serve_lm`` on random weights, the K3 path
+    held against the plain attention path on the same card.
+
+    (1) Full depth, every attention call shadowed
+    (:func:`shadow_attention`): the served output is held to an f64
+    computation on the same inputs, beside the plain path's error.  (2) End to end at
+    ``e2e_layers`` layers (the first layers of the same weights): every
+    step's last-position logits within ``LM_TOL`` of the plain path,
+    greedy tokens equal (a flip allowed only where the plain path's top
+    two logits lie within ``LM_TOL``).  (3) End to end at full depth,
+    reported, not asserted: with random weights the model amplifies any
+    change of f32 rounding by orders of magnitude per layer, so the
+    logit difference of the K3 path against the plain path is printed
+    beside that of the plain path's two backends (``dense`` against
+    ``chunked``) on the same weights and prompts.  On the CPU the K3
+    path is the plain path."""
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tf
+
+    params = tf.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(seed))
+    kw = dict(batch=batch, prompt_len=prompt_len, n_tokens=n_tokens,
+              device=device, keep_logits=True)
+    errs: list = []
+    before = flash_attention.launches
+    with shadow_attention(errs):
+        k3_tok, k3 = serve_lm(cfg, params=params, **kw)
+    launched = flash_attention.launches - before
+    assert len(errs) == cfg.n_layers * n_tokens, len(errs)
+    with plain_attention():
+        plain_tok, plain = serve_lm(cfg, params=params, **kw)
+        dense_tok, dense = serve_lm(
+            dataclasses.replace(cfg, attn_impl="dense"), params=params, **kw)
+    for logits in (k3["logits"], plain["logits"], dense["logits"]):
+        assert logits.shape == (n_tokens, batch, cfg.vocab)
+        assert np.isfinite(logits).all(), "non-finite logits"
+    full = _compare_logits(k3_tok, k3["logits"], plain_tok, plain["logits"])
+    yard = _compare_logits(dense_tok, dense["logits"], plain_tok,
+                           plain["logits"])
+
+    shallow = dataclasses.replace(cfg, n_layers=e2e_layers)
+    sparams = dict(params, layers={k: t[:e2e_layers]
+                                   for k, t in params["layers"].items()})
+    got_tok, got = serve_lm(shallow, params=sparams, **kw)
+    with plain_attention():
+        want_tok, want = serve_lm(shallow, params=sparams, **kw)
+    e2e = _compare_logits(got_tok, got["logits"], want_tok, want["logits"],
+                          tol=LM_TOL)
+    for f in e2e["flips"]:
+        log(f"[lm] token flip at row {f['row']} step {f['step']} "
+            f"({e2e_layers} layers): plain path's top-2 margin "
+            f"{f['margin']:.3g} <= {LM_TOL}")
+    return {"arch": cfg.name, "dtype": str(cfg.dtype), "batch": batch,
+            "prompt_len": prompt_len, "n_tokens": n_tokens,
+            "n_layers": cfg.n_layers, "shadow_calls": len(errs),
+            "shadow_max_abs_err": max(e for e, _ in errs),
+            "shadow_plain_max_abs_err": max(p for _, p in errs),
+            "e2e_layers": e2e_layers,
+            "max_abs_err": e2e["max_abs_err"], "flips": e2e["flips"],
+            "steps_compared": e2e["steps_compared"],
+            "full_depth_k3_vs_plain": full,
+            "full_depth_dense_vs_chunked": yard, "launches": launched}
+
+
+def _kernel_class(name: str) -> str:
+    if "flash_attention" in name:
+        return "k3"
+    low = name.lower()
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet",
+                              "gemv", "splitk")):
+        return "gemm"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def lm_device_split(cfg, params, batch: int, prompt_len: int,
+                    n_decode: int) -> dict:
+    """Where one prefill and ``n_decode`` decode steps spend the card's
+    time: ``torch.profiler`` device time summed by kernel class (K3,
+    GEMM, copies, other: norms, RoPE, SwiGLU, casts, argmax) against the
+    host-clock wall of the same profiled work.  Only device events count
+    (a host op's own entry repeats its kernels' time); with no device
+    time at all the split is reported as not measured (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tf
+
+    rng = np.random.default_rng(1)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           (batch, prompt_len)),
+                              device="cuda")
+    out = {}
+    with torch.inference_mode():
+        for part in ("prefill", "decode"):
+            if part == "prefill":
+                def work():
+                    return tf.prefill(params, prompts, cfg,
+                                      max_len=prompt_len + n_decode + 1)
+            else:
+                _, cache = tf.prefill(params, prompts, cfg,
+                                      max_len=prompt_len + n_decode + 1)
+                toks = prompts[:, -1:]
+
+                def work():
+                    for _ in range(n_decode):
+                        tf.decode_step(params, toks, cache, cfg)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                work()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            sums = {"k3": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
+            kernels = []
+            for ev in prof.key_averages():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue        # a host op: its kernels are counted
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(ev, "self_cuda_time_total", 0.0)
+                if us:
+                    sums[_kernel_class(ev.key)] += us / 1e3
+                    kernels.append((us / 1e3, ev.count, ev.key[:60]))
+            busy = sum(sums.values())
+            steps = 1 if part == "prefill" else n_decode
+            out[part] = {"wall_ms": wall * 1e3 / steps,
+                         "device_ms": ({k: v / steps for k, v in sums.items()}
+                                       if busy else None),
+                         "idle_share": (1 - busy / (wall * 1e3))
+                         if busy else None,
+                         "top_kernels": [(ms / steps, n // steps, name)
+                                         for ms, n, name in
+                                         sorted(kernels, reverse=True)[:8]]}
+    return out
+
+
+def phase_lm_serve(device, cfg, batch: int, prompt_len: int,
+                   n_tokens: int, seed: int = 0, params=None) -> dict:
+    """LM serving at ``cfg``'s own dtype through ``serve_lm``, timed; its
+    greedy tokens and logits are checked for shape, range and
+    finiteness.  Returns its timings and K3 launches.  ``params``
+    defaults to random weights seeded ``seed`` on ``device``."""
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.launch.model_flops import lm_model_flops
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tf
+
+    if params is None:
+        params = tf.init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(seed))
+    before = flash_attention.launches
+    tokens, t = serve_lm(cfg, batch=batch, prompt_len=prompt_len,
+                         n_tokens=n_tokens, device=device, params=params,
+                         keep_logits=True)
+    launched = flash_attention.launches - before
+    logits = t.pop("logits")
+    assert tokens.shape == (batch, n_tokens), tokens.shape
+    assert tokens.min() >= 0 and tokens.max() < cfg.vocab
+    assert logits.shape == (n_tokens, batch, cfg.vocab)
+    assert np.isfinite(logits).all(), "non-finite logits"
+    assert np.array_equal(tokens, logits.argmax(-1).T)
+    flops = lm_model_flops(cfg, LMShape("served", prompt_len, batch,
+                                        "prefill"))
+    steps = max(1, n_tokens - 1)
+    return {"arch": cfg.name, "dtype": str(cfg.dtype), "batch": batch,
+            "prompt_len": prompt_len, "n_tokens": n_tokens,
+            "n_layers": cfg.n_layers, "prefill_ms": t["prefill_s"] * 1e3,
+            "decode_ms_per_step": t["decode_s"] / steps * 1e3,
+            "tokens_per_s": t["tokens_per_s"], "prefill_flops": flops,
+            "prefill_flops_per_s": flops / t["prefill_s"],
+            "prefill_bf16_peak_share":
+                flops / t["prefill_s"] / BF16_OPS_PER_S,
+            "launches": launched}
+
+
 # ---------------------------------------------------------------------------
 # timing on the card
 # ---------------------------------------------------------------------------
@@ -607,6 +902,166 @@ def measure_segment_sum(ids: torch.Tensor, d: int, n: int, flush,
             "gb_per_s": k2_bytes(e, d, n, n_valid) / (ms * 1e-3) / 1e9}
 
 
+def _k3_close(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+    tol = K3_TOL[dtype]
+    assert got.dtype == dtype and got.shape == want.shape, (got.shape,
+                                                            want.shape)
+    err = float((got.float() - want).abs().max()) if got.numel() else 0.0
+    assert torch.allclose(got.float(), want, rtol=tol, atol=tol), \
+        f"flash_attention kernel != plain version (max abs err {err})"
+    return err
+
+
+def _k3_inputs(b, hq, hkv, sq, skv, dh, dtype, gen):
+    """q, k, v as the JAX package's sweep draws them (q and k scaled by
+    0.3), made on the card."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    return ((rand(b, hq, sq, dh) * 0.3).to(dtype),
+            (rand(b, hkv, skv, dh) * 0.3).to(dtype),
+            rand(b, hkv, skv, dh).to(dtype))
+
+
+def decode_view(gen):
+    """The served model's last decode step, bf16: q [8, 1, 15, 64] and the
+    1087 live positions of a [8, 1088, 5, 64] cache as strided views."""
+    ck = torch.randn(8, 1088, 5, 64, generator=gen, device="cuda") * 0.3
+    cv = torch.randn(8, 1088, 5, 64, generator=gen, device="cuda")
+    q = torch.randn(8, 1, 15, 64, generator=gen, device="cuda") * 0.3
+    bf16 = torch.bfloat16
+    return q.to(bf16), ck.to(bf16)[:, :1087], cv.to(bf16)[:, :1087]
+
+
+def phase_flash_checks() -> dict:
+    """K3 vs its plain version on the card: the seven cases of the JAX
+    package's sweep in f32, its bf16 case, Dh = 128 in qwen2's head
+    layout (12 over 2), Sq > Skv (fully masked rows must be 0), the
+    served prefill shape, and a decode step against a strided cache
+    view; then the refusal of a tensor that requires grad."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(2, 4, 2, 256, 256, 64, True, f32),
+             (1, 8, 8, 128, 128, 128, True, f32),
+             (1, 4, 1, 1, 384, 64, True, f32),
+             (2, 6, 3, 100, 100, 64, True, f32),
+             (1, 2, 2, 64, 256, 64, True, f32),
+             (1, 2, 2, 128, 128, 64, False, f32),
+             (1, 15, 5, 64, 64, 64, True, f32),
+             (1, 4, 2, 128, 128, 64, True, bf16),
+             (2, 12, 2, 300, 300, 128, True, f32),
+             (2, 12, 2, 300, 300, 128, True, bf16),
+             (1, 4, 2, 40, 16, 64, True, f32),
+             (8, 15, 5, 1024, 1024, 64, True, bf16)]
+    errs = {}
+    for b, hq, hkv, sq, skv, dh, causal, dtype in cases:
+        q, k, v = _k3_inputs(b, hq, hkv, sq, skv, dh, dtype, gen)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        key = f"{b}x{hq}/{hkv}x{sq}x{skv}x{dh}{'' if causal else ' full'} " \
+              f"{str(dtype).split('.')[-1]}"
+        errs[key] = _k3_close(got, attention_ref(q, k, v, causal=causal),
+                              dtype)
+        if sq > skv:
+            assert not got[:, :, :sq - skv].any(), "masked rows are not 0"
+    q, k, v = decode_view(gen)
+    assert not k.is_contiguous()
+    got = attention_bshd(q, k, v, offset=k.shape[1] - 1, kv_len=k.shape[1])
+    torch.cuda.synchronize()
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), offset=k.shape[1] - 1,
+                         kv_len=k.shape[1]).transpose(1, 2)
+    errs["decode view 8x15/5x1x1087x64 bf16"] = _k3_close(got, want, bf16)
+    try:
+        flash_attention(*(t.float().requires_grad_()
+                          for t in _k3_inputs(1, 2, 2, 8, 8, 64, f32, gen)))
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("a CUDA tensor that requires grad did not raise")
+    log(f"[kernel] flash_attention: {len(errs)} cases within f32 "
+        f"{K3_TOL[f32]} / bf16 {K3_TOL[bf16]} (rtol and atol) of the plain "
+        f"version; Sq > Skv rows are 0; requires_grad raises; max abs err "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    return errs
+
+
+def k3_work(b, hq, hkv, sq, dh, kv_len, offset) -> tuple[int, float]:
+    """(bytes, flops) one causal bf16 attention call must move and do on
+    this data: q, the live K/V and o once each; 4*Dh flops per visible
+    (query, key) pair and head (QK^T and PV)."""
+    nbytes = 2 * (2 * b * hq * sq * dh + 2 * b * hkv * kv_len * dh)
+    pairs = int(np.clip(np.arange(sq) + offset + 1, 0, kv_len).sum())
+    return nbytes, 4.0 * b * hq * dh * pairs
+
+
+def k3_bound_ms(nbytes: int, flops: float) -> tuple[float, str]:
+    """Least time for one bf16 call: bytes over HBM bandwidth or flops
+    over the bf16 tensor-core rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def measure_flash(kind: str, flush, gen) -> dict:
+    """K3 at one served shape (bf16): ``prefill`` q [8,15,1024,64] over
+    k/v [8,5,1024,64], or ``decode`` one query row per head against 1087
+    live positions of a [8,1088,5,64] cache view.  Kernel vs plain
+    version, then kernel, plain and library-call times; the library call
+    is ``scaled_dot_product_attention`` with an explicit decode-convention
+    mask (its ``is_causal`` aligns the mask top-left when Sq != Skv) and
+    ``enable_gqa=True``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kind == "prefill":
+        q, k, v = _k3_inputs(8, 15, 5, 1024, 1024, 64, torch.bfloat16, gen)
+        qh, kh, vh = q, k, v
+        offset, kv_len = 0, 1024
+
+        def kernel():
+            return flash_attention(q, k, v)
+    else:
+        q, k, v = decode_view(gen)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        kv_len = k.shape[1]
+        offset = kv_len - 1
+
+        def kernel():
+            return attention_bshd(q, k, v, offset=offset, kv_len=kv_len)
+    b, hq, sq, dh = qh.shape
+    hkv = kh.shape[1]
+
+    def plain():
+        return attention_ref(qh, kh, vh, offset=offset, kv_len=kv_len)
+
+    mask = (torch.arange(kv_len, device="cuda")[None, :]
+            <= torch.arange(sq, device="cuda")[:, None] + offset)
+
+    def library():
+        return sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    if kind == "decode":
+        got = got.transpose(1, 2)
+    err = _k3_close(got, want, torch.bfloat16)
+    _k3_close(library(), want, torch.bfloat16)   # the yardstick agrees
+    del got, want
+    ms = time_cuda(kernel, flush=flush)
+    plain_ms = time_cuda(plain, flush=flush)
+    lib_ms = time_cuda(library, flush=flush)
+    nbytes, flops = k3_work(b, hq, hkv, sq, dh, kv_len, offset)
+    bms, by = k3_bound_ms(nbytes, flops)
+    return {"kind": kind, "b": b, "hq": hq, "hkv": hkv, "sq": sq,
+            "kv_len": kv_len, "dh": dh, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes, "flops": flops,
+            "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+            "tflop_per_s": flops / (ms * 1e-3) / 1e12}
+
+
 def phase_h2d(n_bytes: int = 64 << 20, reps: int = 5) -> dict:
     """Host-to-device copy rate of one staging-sized buffer, pageable (what
     the loader does today) against pinned memory."""
@@ -688,6 +1143,15 @@ def main(argv=None) -> int:
                          "(edge factor 16, gcn-cora's full width)")
     ap.add_argument("--gnn-requests", type=int, default=8,
                     help="GCN inference requests of 1024 seeds each")
+    ap.add_argument("--lm-batch", type=int, default=8,
+                    help="prompts per LM serving batch (smollm-360m, full "
+                         "width and depth, bf16)")
+    ap.add_argument("--lm-prompt-len", type=int, default=1024)
+    ap.add_argument("--lm-tokens", type=int, default=64,
+                    help="tokens generated per prompt (1 prefill + the "
+                         "rest decode steps)")
+    ap.add_argument("--lm-layers", type=int, default=None,
+                    help="cut smollm-360m's depth (default: all 32)")
     ap.add_argument("--out", default=None,
                     help="also write the full results as JSON to this path")
     args = ap.parse_args(argv)
@@ -718,6 +1182,7 @@ def main(argv=None) -> int:
     ptxas = build.build_all(extra_flags=("-Xptxas", "-v"))
     build.load_library("compbin_decode")
     build.load_library("segment_sum")
+    build.load_library("flash_attention")
     log(f"[build] {len(ptxas)} kernel source(s) in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {build.build_seconds[k]:.1f} s" for k in ptxas))
@@ -734,6 +1199,7 @@ def main(argv=None) -> int:
     # phase 3: kernels vs plain versions on the card
     large = phase_kernel_checks(args.large_log2)
     k2_cases = phase_segment_sum_checks()
+    k3_cases = phase_flash_checks()
 
     results = {"device": smi, "kernel_large": large}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -832,9 +1298,94 @@ def main(argv=None) -> int:
                 f"({r['bound_by']})  {r['gb_per_s']:.1f} GB/s  plain "
                 f"{r['plain_ms']:.4f} ms  library_ms (index_add_) "
                 f"{r['library_ms']:.4f}  max_abs_err {r['max_abs_err']:.3g}")
+
+    # phase 11: LM serving at smollm-360m's full width, K3 path vs the
+    # plain attention path in f32 on the same card
+    spec = get_arch("smollm-360m")
+    lm_cfg = spec.make_config()
+    if args.lm_layers:
+        lm_cfg = dataclasses.replace(lm_cfg, n_layers=args.lm_layers)
+    lm_check = phase_lm_check(device, dataclasses.replace(
+        lm_cfg, dtype=torch.float32), batch=2, prompt_len=512, n_tokens=8)
+    assert lm_check["launches"] == lm_cfg.n_layers * 8, lm_check["launches"]
+    full, yard = (lm_check["full_depth_k3_vs_plain"],
+                  lm_check["full_depth_dense_vs_chunked"])
+    log(f"[lm] {lm_cfg.name} f32 ({lm_cfg.n_layers} layers, d_model "
+        f"{lm_cfg.d_model}, {lm_cfg.n_heads}/{lm_cfg.n_kv_heads} heads, "
+        f"vocab {lm_cfg.vocab}): batch 2 x 512-token prompts, 8 tokens; "
+        f"{lm_check['shadow_calls']} attention calls on the K3 path each "
+        f"within {K3_TOL[torch.float32]} x max(1, max|v|) of f64 attention "
+        f"on the same inputs (max abs err "
+        f"{lm_check['shadow_max_abs_err']:.3g}; the plain f32 path's "
+        f"{lm_check['shadow_plain_max_abs_err']:.3g}); "
+        f"{lm_check['launches']} K3 launches")
+    log(f"[lm] end to end at {lm_check['e2e_layers']} layers: logits within "
+        f"{LM_TOL} of the plain path (max abs err "
+        f"{lm_check['max_abs_err']:.3g} over {lm_check['steps_compared']} "
+        f"row-steps), {len(lm_check['flips'])} token flips")
+    log(f"[lm] end to end at {lm_cfg.n_layers} layers (reported): K3 vs "
+        f"plain max abs logit diff {full['max_abs_err']:.3g}, tokens equal "
+        f"{full['tokens_equal']:.3f}; the plain path's dense vs chunked "
+        f"backends {yard['max_abs_err']:.3g}, tokens equal "
+        f"{yard['tokens_equal']:.3f}")
+
+    # phase 12: LM serving in bf16 after a short warm-up (cuBLAS picks
+    # its bf16 kernels), the K3 launch counter zeroed just before the
+    # timed run
+    from repro_torch.models import transformer as tf
+    lm_params = tf.init_params(lm_cfg, torch.Generator(device=device)
+                               .manual_seed(0))
+    from repro_torch.launch.serve import serve_lm
+    serve_lm(lm_cfg, batch=args.lm_batch, prompt_len=args.lm_prompt_len,
+             n_tokens=2, device=device, params=lm_params)   # warm-up
+    flash_attention.launches = 0
+    lm = phase_lm_serve(device, lm_cfg, args.lm_batch, args.lm_prompt_len,
+                        args.lm_tokens, params=lm_params)
+    lm_k3 = flash_attention.launches
+    # after the count: where the card's time goes, by kernel class
+    lm["device_split"] = split = lm_device_split(
+        lm_cfg, lm_params, args.lm_batch, args.lm_prompt_len, 3)
+    del lm_params
+    assert lm_k3 == lm["launches"] == lm_cfg.n_layers * args.lm_tokens, \
+        (lm_k3, lm["launches"])
+    log(f"[lm] {lm_cfg.name} bf16: {args.lm_batch} x {args.lm_prompt_len}"
+        f"-token prompts, {args.lm_tokens} tokens: prefill "
+        f"{lm['prefill_ms']:.3f} ms ({lm['prefill_flops']:.4g} FLOP by "
+        f"lm_model_flops, {lm['prefill_flops_per_s'] / 1e12:.2f} TFLOP/s = "
+        f"{100 * lm['prefill_bf16_peak_share']:.2f} % of 989 TFLOP/s), "
+        f"decode {lm['decode_ms_per_step']:.3f} ms per step, "
+        f"{lm['tokens_per_s']:.1f} tokens/s; K3 launches {lm_k3} "
+        f"({lm_cfg.n_layers} prefill + {args.lm_tokens - 1} x "
+        f"{lm_cfg.n_layers} decode)")
+    for part, sp in split.items():
+        dev = sp["device_ms"]
+        log(f"[lm] {part} (torch.profiler, per "
+            f"{'prefill' if part == 'prefill' else 'decode step'}): wall "
+            f"{sp['wall_ms']:.3f} ms; device "
+            + ("not measured (no device time in the trace)" if dev is None
+               else ", ".join(f"{k} {v:.3f} ms" for k, v in dev.items())
+               + f"; idle share {sp['idle_share']:.3f}"))
+        log(f"[lm] {part} top kernels (ms, launches, name): " + "; ".join(
+            f"{ms:.3f} {n} {name}" for ms, n, name in sp["top_kernels"]))
+
+    # phase 13: K3 at the two served shapes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    k3 = {}
+    for kind in ("prefill", "decode"):
+        r = k3[kind] = measure_flash(kind, flush, gen)
+        log(f"[kernel] flash_attention {kind} q[{r['b']},{r['hq']},"
+            f"{r['sq']},{r['dh']}] over {r['kv_len']} keys x {r['hkv']} "
+            f"heads: kernel {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})  {r['tflop_per_s']:.2f} TFLOP/s  "
+            f"{r['gb_per_s']:.1f} GB/s  plain {r['plain_ms']:.4f} ms  "
+            f"library_ms (sdpa, explicit mask) {r['library_ms']:.4f}  "
+            f"max_abs_err {r['max_abs_err']:.3g}")
     results.update(load=load, serve=serve, logcsr=logcsr, crossover=cross,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
-                   segment_sum_cases=k2_cases,
+                   segment_sum_cases=k2_cases, flash_attention=k3,
+                   flash_attention_cases=k3_cases, lm_check=lm_check,
+                   lm_serve=lm,
                    kernel_main_path=k1, graph={
                        "scale": args.scale, "vertices": csr.n_vertices,
                        "edges": csr.n_edges, "generate_s": gen_s,
@@ -863,6 +1414,18 @@ def main(argv=None) -> int:
         "shape": (f"f32[{k2['layer0']['e']},{k2['layer0']['d']}] by "
                   f"int32[{k2['layer0']['e']}] -> "
                   f"f32[{k2['layer0']['n']},{k2['layer0']['d']}] (layer 0)"),
+    }, {
+        "name": "flash_attention", "route": "cuda", "source": K3_CUDA_SOURCE,
+        "replaces": K3_TPU_KERNEL, "launches": lm_k3,
+        "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+        "ms": k3["prefill"]["ms"], "plain_ms": k3["prefill"]["plain_ms"],
+        "bound_ms": k3["prefill"]["bound_ms"],
+        "bound_by": k3["prefill"]["bound_by"],
+        "library_ms": k3["prefill"]["library_ms"],
+        "shape": "bf16 q[8,15,1024,64] k/v[8,5,1024,64] causal (prefill)",
+        "decode": {key: k3["decode"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")},
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

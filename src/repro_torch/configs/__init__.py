@@ -1,21 +1,23 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers.  Only ``gcn-cora`` is ported; the JAX package's other
+launchers.  Ported: ``gcn-cora`` and the dense LMs (``smollm-360m``,
+``qwen2-1.5b``, ``stablelm-1.6b``); the JAX package's other
 architectures raise ``KeyError`` saying so."""
 
 from __future__ import annotations
 
-from repro_torch.configs import gcn_cora, shapes  # noqa: F401
+from repro_torch.configs import (gcn_cora, qwen2_1_5b, shapes,  # noqa: F401
+                                 smollm_360m, stablelm_1_6b)
 from repro_torch.configs.base import ArchSpec
 
-_MODULES = [gcn_cora]
+_MODULES = [smollm_360m, qwen2_1_5b, stablelm_1_6b, gcn_cora]
 
 REGISTRY: dict[str, ArchSpec] = {m.SPEC.arch_id: m.SPEC for m in _MODULES}
 
 ARCH_IDS = list(REGISTRY)
 
 #: the JAX package's architectures that this port does not hold yet
-NOT_PORTED = ("qwen2-moe-a2.7b", "dbrx-132b", "smollm-360m", "qwen2-1.5b",
-              "stablelm-1.6b", "dimenet", "meshgraphnet", "pna", "din")
+NOT_PORTED = ("qwen2-moe-a2.7b", "dbrx-132b", "dimenet", "meshgraphnet",
+              "pna", "din")
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -56,3 +56,22 @@ def gcn_params_from_numpy(params: dict, device=None) -> dict:
     device = resolve_device(device)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
             for k, v in params.items()}
+
+
+def transformer_params_from_numpy(params: dict, cfg, device=None) -> dict:
+    """The JAX package's transformer params pytree as numpy (``embed``,
+    ``final_norm_scale`` [, ``final_norm_bias``, ``lm_head``] and
+    ``layers`` with ``wq, wk, wv, wo, w_gate, w_up, w_down``, the norm
+    scales [and biases, ``bq, bk, bv``] stacked over the L layers; e.g.
+    ``jax.tree_util.tree_map(np.asarray, jax_params)``) as the port's
+    params dict: the same keys and shapes, tensors in ``cfg.dtype`` on
+    ``device`` (None = the GPU, raises without one)."""
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=cfg.dtype)
+
+    out = {k: t(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: t(v) for k, v in params["layers"].items()}
+    return out

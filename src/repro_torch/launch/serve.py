@@ -1,15 +1,19 @@
-"""Serving entry point of the port: online GNN inference over the
-random-access graph query engine, on the GPU.
+"""Serving entry point of the port, on the GPU: batched LM decode
+(prefill + greedy decode against a KV cache) and online GNN inference
+over the random-access graph query engine.
 
+    python -m repro_torch.launch.serve --arch smollm-360m --reduced --tokens 32
+    python -m repro_torch.launch.serve --arch smollm-360m --batch 8 \\
+        --prompt-len 1024 --tokens 64
     python -m repro_torch.launch.serve --arch gcn-cora --reduced --requests 8
     python -m repro_torch.launch.serve --arch gcn-cora --requests 8 \\
         --batch 1024 --scale 18 --edge-factor 16 --trace-sample 4
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions).  The
 JAX package's traversal and sharded serving (``--traversal``,
-``--shards``, ``--replication``), its hot-set tier (``--hotset-bytes``)
-and its LM and DIN serving are not ported yet: asking for them exits
-with a message saying so.
+``--shards``, ``--replication``), its hot-set tier (``--hotset-bytes``),
+its MoE LMs and its DIN serving are not ported yet: asking for them
+exits with a message saying so.
 """
 
 from __future__ import annotations
@@ -25,6 +29,78 @@ import torch
 from repro_torch.configs import get_arch
 
 log = logging.getLogger("repro_torch.serve")
+
+
+def serve_lm(cfg, *, batch: int, prompt_len: int, n_tokens: int,
+             device=None, params: dict = None, prompts=None,
+             keep_logits: bool = False):
+    """Batched greedy LM serving: one prefill of ``batch`` prompts of
+    ``prompt_len`` tokens, then ``n_tokens - 1`` decode steps against the
+    KV cache (``max_len = prompt_len + n_tokens``), under
+    ``torch.inference_mode()``; logs the JAX package's ``serve_lm`` line.
+
+    Keywords the JAX package lacks: ``device`` (None = the GPU, raises
+    without one), ``params`` (None = random weights from a
+    ``torch.Generator`` seeded 0 on ``device``; pass converted weights to
+    serve the reference's model), ``prompts`` (None = drawn from
+    ``np.random.default_rng(0)`` as the JAX package draws them) and
+    ``keep_logits``.  Returns ``(tokens, timings)``: the greedy tokens as
+    int64 numpy ``[batch, n_tokens]`` (the prefill's first) and a dict of
+    ``prefill_s``, ``decode_s``, ``decode_steps`` and ``tokens_per_s``
+    (decode tokens over ``decode_s``), each timed on the host clock
+    around work that ends in a device synchronise; with ``keep_logits``
+    also ``logits``, every step's last-position logits as f32 numpy
+    ``[n_tokens, batch, vocab]`` (copied after the timed loop).
+    """
+    from repro_torch.kernels.utils import resolve_device
+    from repro_torch.models import transformer as tf
+
+    device = resolve_device(device)
+    if params is None:
+        params = tf.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0))
+    if prompts is None:
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab, (batch, prompt_len))
+    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                              device=device)
+    if tuple(prompts.shape) != (batch, prompt_len):
+        raise ValueError(f"prompts {tuple(prompts.shape)} != "
+                         f"({batch}, {prompt_len})")
+    max_len = prompt_len + n_tokens
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(params, prompts, cfg, max_len=max_len)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        toks = logits.argmax(-1)[:, None]
+        outs, kept = [toks], [logits]
+        t0 = time.perf_counter()
+        for _ in range(n_tokens - 1):
+            logits, cache = tf.decode_step(params, toks, cache, cfg)
+            toks = logits.argmax(-1)[:, None]
+            outs.append(toks)
+            if keep_logits:
+                kept.append(logits)
+        sync()
+        t_decode = time.perf_counter() - t0
+        tokens = torch.cat(outs, dim=1).cpu().numpy()
+        timings = {"prefill_s": t_prefill, "decode_s": t_decode,
+                   "decode_steps": n_tokens - 1,
+                   "tokens_per_s": batch * (n_tokens - 1) / max(t_decode,
+                                                                1e-9)}
+        if keep_logits:
+            timings["logits"] = torch.stack(kept).float().cpu().numpy()
+    log.info("prefill %.1f ms (%d x %d); decode %.2f ms/token/batch "
+             "(%.0f tok/s)", t_prefill * 1e3, batch, prompt_len,
+             t_decode / max(1, n_tokens - 1) * 1e3, timings["tokens_per_s"])
+    return tokens, timings
 
 
 def collect_service_metrics(service) -> "MetricsRegistry":
@@ -265,6 +341,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--workdir", default="/tmp/repro_torch_serve")
     ap.add_argument("--device", default=None,
@@ -295,9 +373,13 @@ def main(argv=None) -> None:
         spec = get_arch(args.arch)
     except KeyError as e:
         raise SystemExit(e.args[0]) from None
+    cfg = spec.make_reduced() if args.reduced else spec.make_config()
+    if spec.family == "lm":
+        serve_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                 n_tokens=args.tokens, device=args.device)
+        return
     if spec.family != "gnn":
         raise SystemExit(f"{spec.family} serving is not ported yet")
-    cfg = spec.make_reduced() if args.reduced else spec.make_config()
     serve_gnn(args.arch, cfg, batch=args.batch, n_requests=args.requests,
               workdir=args.workdir, hotset_bytes=args.hotset_bytes,
               metrics_json=args.metrics_json,

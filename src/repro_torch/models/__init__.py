@@ -1,2 +1,3 @@
-"""Models of the port: GCN so far (``models/gnn/gcn.py``); PNA,
-MeshGraphNet, DimeNet, the transformer and DIN are not ported yet."""
+"""Models of the port: GCN (``models/gnn/gcn.py``) and the dense
+decoder-only transformer (``models/transformer.py``, serving half); PNA,
+MeshGraphNet, DimeNet, the MoE FFN and DIN are not ported yet."""

@@ -1,8 +1,8 @@
 """Shared model building blocks (plain functions over tensors).
 
-Only what GCN needs is ported: ``dense_init`` and ``cross_entropy_loss``.
-The JAX package's ``rms_norm``, ``layer_norm``, ``mlp`` and ``init_mlp``
-come with the models that use them.
+Ported so far: ``dense_init`` and ``cross_entropy_loss`` (GCN),
+``rms_norm`` and ``layer_norm`` (the transformer).  The JAX package's
+``mlp`` and ``init_mlp`` come with the models that use them.
 """
 
 from __future__ import annotations
@@ -13,12 +13,35 @@ import torch
 def dense_init(generator: torch.Generator, shape, scale: float | None = None,
                dtype=torch.float32, device=None) -> torch.Tensor:
     """Truncated-normal fan-in init (the JAX package's distribution, not
-    its bits: the two frameworks draw different numbers from one seed)."""
+    its bits: the two frameworks draw different numbers from one seed).
+    Drawn on the generator's device, then moved to ``device``."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
-    w = torch.empty(tuple(shape), dtype=torch.float32)
+    w = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * std).to(dtype=dtype, device=device)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, computed in f32, cast back to x's dtype."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xf * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, computed in f32, cast back to x's
+    dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -169,7 +169,8 @@ def test_configs_and_params_mirror_the_reference():
     ref_spec = ref_get_arch("gcn-cora")
     assert (spec.arch_id, spec.family, spec.citation) == \
         (ref_spec.arch_id, ref_spec.family, ref_spec.citation)
-    assert port_configs.ARCH_IDS == ["gcn-cora"]
+    assert port_configs.ARCH_IDS == ["smollm-360m", "qwen2-1.5b",
+                                     "stablelm-1.6b", "gcn-cora"]
     for make in ("make_config", "make_reduced"):
         a, b = getattr(spec, make)(), getattr(ref_spec, make)()
         for f in dataclasses.fields(b):
@@ -183,7 +184,7 @@ def test_configs_and_params_mirror_the_reference():
         for k in r:
             assert tuple(p[k].shape) == r[k].shape and p[k].dtype == torch.float32
     assert set(spec.shapes) == set(ref_spec.shapes)
-    for arch in ("pna", "smollm-360m", "din", "dimenet"):
+    for arch in ("pna", "qwen2-moe-a2.7b", "din", "dimenet"):
         with pytest.raises(KeyError, match="not ported yet"):
             port_configs.get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -191,7 +192,7 @@ def test_configs_and_params_mirror_the_reference():
     assert _GNN_MODULES == {"gcn-cora": port_gcn}
     assert port_configs.all_cells() == [
         c for c in __import__("repro.configs", fromlist=["x"]).all_cells()
-        if c[0] == "gcn-cora"]
+        if c[0] in port_configs.ARCH_IDS]
 
 
 def test_dense_init_is_a_truncated_fan_in_normal():

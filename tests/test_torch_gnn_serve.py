@@ -172,7 +172,7 @@ def test_cli_serves_and_writes_metrics(tmp_path, caplog):
     assert metrics["obs.sampled_traces"] == 2
     for argv, msg in ((["--arch", "gcn-cora", "--traversal"], "not ported"),
                       (["--arch", "gcn-cora", "--shards", "2"], "not ported"),
-                      (["--arch", "smollm-360m"], "not ported"),
+                      (["--arch", "qwen2-moe-a2.7b"], "not ported"),
                       (["--arch", "din"], "not ported")):
         with pytest.raises(SystemExit, match=msg):
             port_serve.main(argv + ["--device", "cpu",

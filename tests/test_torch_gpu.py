@@ -5,7 +5,8 @@ machine with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py`` (the first test of each kernel builds it with
 nvcc).  Integer results: tolerance ZERO (``torch.equal``); the segment
 sum: f32 rtol 1e-5 / atol 1e-4, bf16 inputs 2e-2 / 2e-1 (atomics add in
-no fixed order)."""
+no fixed order); flash attention: f32 2e-4, bf16 2e-2 (rtol and atol, the
+JAX package's own kernel tolerances)."""
 
 import numpy as np
 import pytest
@@ -16,6 +17,9 @@ from repro_torch.data import assemble_csr, stream_partitions
 from repro_torch.graph import rmat
 from repro_torch.kernels.compbin_decode import (compbin_decode,
                                                 compbin_decode_ref)
+from repro_torch.kernels.flash_attention import (attention_bshd,
+                                                 attention_ref,
+                                                 flash_attention)
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
 from repro_torch.query import NeighborQueryEngine
 
@@ -104,3 +108,77 @@ def test_gcn_serving_goes_through_both_kernels(cuda, tmp_path):
     assert logits.shape == (64, cfg.n_classes) and np.isfinite(logits).all()
     assert compbin_decode.launches - k1 == engine.stats.device_batches > 0
     assert segment_sum.launches - k2 == cfg.n_layers + 1
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,Dh,causal", [
+    (2, 4, 2, 256, 256, 64, True), (1, 8, 8, 128, 128, 128, True),
+    (1, 4, 1, 1, 384, 64, True), (2, 6, 3, 100, 100, 64, True),
+    (1, 2, 2, 64, 256, 64, True), (1, 2, 2, 128, 128, 64, False),
+    (1, 15, 5, 64, 64, 64, True), (2, 12, 2, 300, 300, 128, True),
+    (1, 4, 2, 40, 16, 64, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_equals_plain_version(cuda, B, Hq, Hkv, Sq,
+                                                     Skv, Dh, causal, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq + Skv)
+
+    def t(*shape, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(cuda, dtype)
+    q, k, v = t(B, Hq, Sq, Dh, scale=0.3), t(B, Hkv, Skv, Dh, scale=0.3), \
+        t(B, Hkv, Skv, Dh)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.dtype == dtype
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v,
+                                                          causal=causal),
+                               rtol=tol, atol=tol)
+    if Sq > Skv:
+        assert not out[:, :, :Sq - Skv].any()
+
+
+def test_flash_attention_on_a_strided_cache_view(cuda):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cache = torch.randn(2, 2, 96, 5, 64, generator=g, device=cuda
+                        ).to(torch.bfloat16)
+    q = torch.randn(2, 3, 15, 64, generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    k, v = cache[0, :, :71], cache[1, :, :71]
+    out = attention_bshd(q, k, v, offset=68, kv_len=71)
+    torch.cuda.synchronize()
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), offset=68, kv_len=71)
+    torch.testing.assert_close(out.float(), want.transpose(1, 2),
+                               rtol=2e-2, atol=2e-2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention_bshd(q.float().requires_grad_(), k.float(), v.float())
+    with pytest.raises(ValueError, match="Dh"):
+        flash_attention(*(torch.zeros(1, 2, 4, 32, device=cuda),) * 3)
+
+
+def test_lm_serving_goes_through_the_kernel(cuda):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_arch("smollm-360m").make_config(),
+                              n_layers=2, dtype=torch.float32)
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    before = flash_attention.launches
+    tokens, t = serve_lm(cfg, batch=2, prompt_len=40, n_tokens=4,
+                         params=params, keep_logits=True)
+    assert flash_attention.launches - before == 2 * 4
+    saved = tf.attention
+    tf.attention = tf.attention_plain
+    try:
+        want_tokens, want = serve_lm(cfg, batch=2, prompt_len=40,
+                                     n_tokens=4, params=params,
+                                     keep_logits=True)
+    finally:
+        tf.attention = saved
+    np.testing.assert_allclose(t["logits"], want["logits"], rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_array_equal(tokens, want_tokens)

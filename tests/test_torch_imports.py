@@ -46,9 +46,14 @@ def test_every_slice_module_is_present():
                  "kernels.segment_sum.ops", "models.common",
                  "models.gnn.layers", "models.gnn.gcn", "configs.shapes",
                  "configs.base", "configs.gcn_cora", "launch.data_gnn",
-                 "launch.steps", "launch.serve"):
+                 "launch.steps", "launch.serve",
+                 "kernels.flash_attention.ref",
+                 "kernels.flash_attention.kernel",
+                 "kernels.flash_attention.ops", "models.transformer",
+                 "configs.smollm_360m", "configs.qwen2_1_5b",
+                 "configs.stablelm_1_6b", "launch.model_flops"):
         assert f"repro_torch.{want}" in mods, want
-    for kernel in ("compbin_decode", "segment_sum"):
+    for kernel in ("compbin_decode", "segment_sum", "flash_attention"):
         assert (SRC / "repro_torch" / "csrc" / f"{kernel}.cu").is_file()
 
 
@@ -110,6 +115,14 @@ def test_device_none_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_gnn_server("gcn-cora", get_arch("gcn-cora").make_reduced(),
                         str(tmp_path / "gnn"))
+    from repro_torch.convert import transformer_params_from_numpy
+    from repro_torch.launch.serve import serve_lm
+    lm = get_arch("smollm-360m").make_reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm(lm, batch=1, prompt_len=2, n_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer_params_from_numpy(
+            {"embed": np.zeros((4, 2)), "layers": {}}, lm)
 
 
 def test_cpu_must_be_asked_for_by_name():
@@ -138,8 +151,10 @@ def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
         build.load_library("no_such_kernel")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load_library("segment_sum")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library("flash_attention")
     assert sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")) == \
-        ["compbin_decode", "segment_sum"]
+        ["compbin_decode", "flash_attention", "segment_sum"]
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
 
 
