@@ -7,17 +7,18 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
 It builds every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card (the
-decode bit for bit, the segment sum to f32 rounding, flash attention to
-the JAX package's kernel tolerances), drives the port's main paths
+decode bit for bit, the segment sum to f32 rounding, flash attention's
+three designs -- tensor-core prefill, split decode, f32 FMA -- to the JAX
+package's kernel tolerances), drives the port's main paths
 through the library entry points -- load a CompBin graph into HBM
 through PG-Fuse, answer batches of neighbor queries from the same file,
 serve GCN inference requests at gcn-cora's full width (sample through
 the query engine, gather feature rows from the feature store, one
 transfer, forward pass with the segment-sum kernel), and serve
 smollm-360m at full width and depth (prefill + greedy decode against a
-KV cache, every attention on the flash-attention kernel) -- checks every
-result against an independent plain computation, and prints what it
-measured.
+KV cache, every attention on the flash-attention kernel; then again in
+bf16 with every attention call held to f64) -- checks every result
+against an independent plain computation, and prints what it measured.
 
 Output contract: the line before the last but one is the card's name and
 power limit as ``nvidia-smi`` gives them; the last but one is one JSON
@@ -62,7 +63,7 @@ from repro_torch.kernels.compbin_decode import (compbin_decode,  # noqa: E402
                                                 stream_bucket_ids)
 from repro_torch.kernels.flash_attention import (attention_bshd,  # noqa: E402
                                                  attention_ref,
-                                                 flash_attention)
+                                                 flash_attention, plan)
 from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
                                              segment_sum_ref)
 from repro_torch.query import NeighborQueryEngine  # noqa: E402
@@ -92,6 +93,9 @@ K3_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 #: f32 LM logits of the K3 path against the plain path on the card
 #: (rtol and atol): the same weights and prompts, sums in another order
 LM_TOL = 1e-3
+#: tokens of the served-dtype run whose every attention call is held to
+#: f64 (1 prefill + 3 decode steps: both of K3's bf16 designs)
+LM_SHADOW_TOKENS = 4
 
 
 def log(msg: str) -> None:
@@ -435,11 +439,12 @@ def shadow_attention(errs: list):
     """Every attention call of the port's transformer is also computed in
     float64 on the same q/k/v (the live cache as it is at that step) and
     by the plain path in the served dtype.  The served output is held to
-    the f64 one at ``K3_TOL`` scaled by max(1, max|v|): the output is a
-    convex combination of V rows, and the served model's V runs to ~60
-    where the JAX package's sweep draws it from N(0, 1).  Appends
-    ``(served error, plain-path error)`` against f64 per call; the plain
-    path launches no kernel."""
+    the f64 one at rtol ``K3_TOL`` and atol ``K3_TOL`` x max(1, max|v|):
+    the output is a convex combination of V rows, and the served model's
+    V runs to ~60 where the JAX package's sweep draws it from N(0, 1), so
+    the absolute floor scales with V while the relative part does not.
+    Appends ``(served error, plain-path error, atol)`` against f64 per
+    call; the plain path launches no kernel."""
     from repro_torch.models import transformer as tf
 
     served = tf.attention
@@ -450,12 +455,14 @@ def shadow_attention(errs: list):
         plain = tf.attention_plain(q, k, v, cfg, causal=causal,
                                    q_offset=q_offset)
         err = float((out.double() - truth).abs().max())
-        tol = K3_TOL[out.dtype] * max(1.0, float(
+        rtol = K3_TOL[out.dtype]
+        atol = rtol * max(1.0, float(
             v[:, :q_offset + q.shape[1]].abs().max()))
-        assert torch.allclose(out.double(), truth, rtol=tol, atol=tol), \
+        assert out.shape == truth.shape and torch.allclose(
+            out.double(), truth, rtol=rtol, atol=atol), \
             f"served attention != f64 attention (max abs err {err}, " \
-            f"tolerance {tol})"
-        errs.append((err, float((plain.double() - truth).abs().max())))
+            f"rtol {rtol}, atol {atol})"
+        errs.append((err, float((plain.double() - truth).abs().max()), atol))
         return out
 
     tf.attention = attention
@@ -463,6 +470,20 @@ def shadow_attention(errs: list):
         yield
     finally:
         tf.attention = served
+
+
+def shadow_summary(errs: list) -> dict:
+    """What :func:`shadow_attention` recorded, summed up: the served and
+    plain errors' maxima, the range of the per-call atol, the largest
+    error as a share of its call's atol, and every call's
+    ``(err, plain_err, atol)``."""
+    return {"calls": len(errs),
+            "max_abs_err": max(e for e, _, _ in errs),
+            "plain_max_abs_err": max(p for _, p, _ in errs),
+            "atol_min": min(a for _, _, a in errs),
+            "atol_max": max(a for _, _, a in errs),
+            "worst_err_over_atol": max(e / a for e, _, a in errs),
+            "per_call": errs}
 
 
 def _compare_logits(got_tok, got_l, want_tok, want_l, tol=None) -> dict:
@@ -552,9 +573,8 @@ def phase_lm_check(device, cfg, batch: int, prompt_len: int,
             f"{f['margin']:.3g} <= {LM_TOL}")
     return {"arch": cfg.name, "dtype": str(cfg.dtype), "batch": batch,
             "prompt_len": prompt_len, "n_tokens": n_tokens,
-            "n_layers": cfg.n_layers, "shadow_calls": len(errs),
-            "shadow_max_abs_err": max(e for e, _ in errs),
-            "shadow_plain_max_abs_err": max(p for _, p in errs),
+            "n_layers": cfg.n_layers,
+            **{f"shadow_{k}": x for k, x in shadow_summary(errs).items()},
             "e2e_layers": e2e_layers,
             "max_abs_err": e2e["max_abs_err"], "flips": e2e["flips"],
             "steps_compared": e2e["steps_compared"],
@@ -562,8 +582,79 @@ def phase_lm_check(device, cfg, batch: int, prompt_len: int,
             "full_depth_dense_vs_chunked": yard, "launches": launched}
 
 
+def k3_instantiations(ptxas_log: str, nvcc: str) -> list:
+    """Registers, dynamic shared memory and spills of each K3 kernel
+    instantiation, from ``nvcc -Xptxas -v`` (names demangled by the
+    toolkit's ``cu++filt`` where there is one; shared memory from the
+    library's own table, since ptxas sees no dynamic shared memory)."""
+    from repro_torch.kernels.flash_attention.kernel import smem_bytes
+    from repro_torch.kernels.flash_attention.ops import DESIGNS
+
+    rows, name, spill = [], None, (0, 0)
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            parts = line.replace(",", "").split()
+            spill = (int(parts[parts.index("spill") - 2]),
+                     int(parts[parts.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and name:
+            rows.append({"mangled": name, "spill_stores": spill[0],
+                         "spill_loads": spill[1],
+                         "registers": int(line.split("Used")[1].split()[0])})
+            name = None
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    for row in rows:
+        row["kernel"] = row["mangled"]
+        if os.path.exists(filt):
+            name = subprocess.run([filt, row["mangled"]], capture_output=True,
+                                  text=True).stdout.strip()
+            name = name[:name.rfind(">(") + 1] if ">(" in name else name
+            for junk in ("void ", "<unnamed>::", "(anonymous namespace)::",
+                         "(int)", "(bool)"):
+                name = name.replace(junk, "")
+            row["kernel"] = name
+        dh = 128 if "128" in row["kernel"] or "Li128" in row["mangled"] else 64
+        m = row["mangled"]
+        if "k3_tc" in m:
+            design, bf16 = ("tc_prefill" if "Lb0" in m else "split_decode"), True
+        elif "k3_fma" in m:
+            design, bf16 = ("split_decode" if "Lb1" in m else "fma"), False
+        else:                       # the combine: no dynamic shared memory
+            row["smem_bytes"] = 0
+            continue
+        row["smem_bytes"] = smem_bytes(DESIGNS[design], dh, bf16)
+    return rows
+
+
+def phase_lm_shadow(device, cfg, params, batch: int, prompt_len: int,
+                    n_tokens: int) -> dict:
+    """LM serving in ``cfg``'s own dtype at full depth with every
+    attention call shadowed (:func:`shadow_attention`): each call within
+    rtol ``K3_TOL[dtype]``, atol ``K3_TOL[dtype]`` x max(1, max|v|) of
+    f64 attention on the same inputs.  On the card, in bf16, the prefill
+    runs the tensor-core design and each decode step the split design,
+    so this holds both on the served model's real activations."""
+    from repro_torch.launch.serve import serve_lm
+
+    errs: list = []
+    before = flash_attention.launches
+    with shadow_attention(errs):
+        tokens, t = serve_lm(cfg, batch=batch, prompt_len=prompt_len,
+                             n_tokens=n_tokens, device=device, params=params,
+                             keep_logits=True)
+    launched = flash_attention.launches - before
+    assert len(errs) == cfg.n_layers * n_tokens, len(errs)
+    assert tokens.shape == (batch, n_tokens)
+    assert np.isfinite(t["logits"]).all(), "non-finite logits"
+    return {"dtype": str(cfg.dtype), "batch": batch,
+            "prompt_len": prompt_len, "n_tokens": n_tokens,
+            "n_layers": cfg.n_layers, **shadow_summary(errs),
+            "launches": launched}
+
+
 def _kernel_class(name: str) -> str:
-    if "flash_attention" in name:
+    if "k3_" in name or "flash_attention" in name:
         return "k3"
     low = name.lower()
     if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet",
@@ -922,22 +1013,34 @@ def _k3_inputs(b, hq, hkv, sq, skv, dh, dtype, gen):
             rand(b, hkv, skv, dh).to(dtype))
 
 
-def decode_view(gen):
-    """The served model's last decode step, bf16: q [8, 1, 15, 64] and the
-    1087 live positions of a [8, 1088, 5, 64] cache as strided views."""
-    ck = torch.randn(8, 1088, 5, 64, generator=gen, device="cuda") * 0.3
-    cv = torch.randn(8, 1088, 5, 64, generator=gen, device="cuda")
-    q = torch.randn(8, 1, 15, 64, generator=gen, device="cuda") * 0.3
-    bf16 = torch.bfloat16
-    return q.to(bf16), ck.to(bf16)[:, :1087], cv.to(bf16)[:, :1087]
+def decode_view(gen, dtype=torch.bfloat16, b: int = 8, live: int = 1087,
+                hq: int = 15, hkv: int = 5, dh: int = 64, sq: int = 1):
+    """A decode step (default: the served model's last, bf16): q [b, sq,
+    hq, dh] and the ``live`` positions of a [b, live + 1, hkv, dh] cache
+    as strided views."""
+    ck = torch.randn(b, live + 1, hkv, dh, generator=gen, device="cuda") * 0.3
+    cv = torch.randn(b, live + 1, hkv, dh, generator=gen, device="cuda")
+    q = torch.randn(b, sq, hq, dh, generator=gen, device="cuda") * 0.3
+    return q.to(dtype), ck.to(dtype)[:, :live], cv.to(dtype)[:, :live]
+
+
+def _design(q: torch.Tensor, hkv: int, sq: int, kv_len: int) -> str:
+    """The design ``plan`` gives a call with q in the JAX layout."""
+    b, hq, _, dh = q.shape
+    return plan(q.dtype, hq // hkv * sq, kv_len, dh, b * hkv)[0]
 
 
 def phase_flash_checks() -> dict:
-    """K3 vs its plain version on the card: the seven cases of the JAX
-    package's sweep in f32, its bf16 case, Dh = 128 in qwen2's head
-    layout (12 over 2), Sq > Skv (fully masked rows must be 0), the
-    served prefill shape, and a decode step against a strided cache
-    view; then the refusal of a tensor that requires grad."""
+    """K3 vs its plain version on the card, across its three designs: the
+    seven cases of the JAX package's sweep in f32, its bf16 case, Dh = 128
+    in qwen2's head layout (12 over 2), Sq > Skv (fully masked rows must
+    be 0), the served prefill, a decode step against a strided cache
+    view; the tensor-core prefill at row counts either side of its
+    64-row warpgroup and 128-row block edges (Dh 64 and 128, causal and
+    full, Sq > Skv); split decode on strided cache views at kv_len 1, 65
+    and 4096 in f32 and bf16, at 32 rows, and a 5-token chunk whose later
+    key ranges see no key; then the refusal of a tensor that requires
+    grad."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -953,27 +1056,45 @@ def phase_flash_checks() -> dict:
              (2, 12, 2, 300, 300, 128, True, bf16),
              (1, 4, 2, 40, 16, 64, True, f32),
              (8, 15, 5, 1024, 1024, 64, True, bf16)]
-    errs = {}
+    for dh in (64, 128):
+        cases += [(1, 2, 2, sq, sq, dh, True, bf16) for sq in (63, 65, 129)]
+        cases += [(1, 2, 2, 300, 300, dh, False, bf16),
+                  (1, 3, 1, 100, 60, dh, True, bf16)]
+    errs, designs = {}, set()
     for b, hq, hkv, sq, skv, dh, causal, dtype in cases:
         q, k, v = _k3_inputs(b, hq, hkv, sq, skv, dh, dtype, gen)
         before = flash_attention.launches
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         assert flash_attention.launches == before + 1
+        design = _design(q, hkv, sq, skv)
+        designs.add(design)
         key = f"{b}x{hq}/{hkv}x{sq}x{skv}x{dh}{'' if causal else ' full'} " \
-              f"{str(dtype).split('.')[-1]}"
+              f"{str(dtype).split('.')[-1]} {design}"
         errs[key] = _k3_close(got, attention_ref(q, k, v, causal=causal),
                               dtype)
         if sq > skv:
             assert not got[:, :, :sq - skv].any(), "masked rows are not 0"
-    q, k, v = decode_view(gen)
-    assert not k.is_contiguous()
-    got = attention_bshd(q, k, v, offset=k.shape[1] - 1, kv_len=k.shape[1])
-    torch.cuda.synchronize()
-    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), offset=k.shape[1] - 1,
-                         kv_len=k.shape[1]).transpose(1, 2)
-    errs["decode view 8x15/5x1x1087x64 bf16"] = _k3_close(got, want, bf16)
+    views = [(8, 15, 5, 1, 1087, 1086, bf16)]
+    for dtype in (f32, bf16):
+        views += [(2, 6, 2, 1, live, live - 1, dtype)
+                  for live in (1, 65, 4096)]
+        views += [(2, 32, 1, 1, 700, 699, dtype),       # 32 rows
+                  (2, 6, 2, 5, 1000, 40, dtype)]        # empty later ranges
+    for b, hq, hkv, sq, live, offset, dtype in views:
+        q, k, v = decode_view(gen, dtype, b, live, hq, hkv, sq=sq)
+        assert not k.is_contiguous()
+        got = attention_bshd(q, k, v, offset=offset, kv_len=live)
+        torch.cuda.synchronize()
+        want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), offset=offset,
+                             kv_len=live).transpose(1, 2)
+        design, nsplit = plan(dtype, hq // hkv * sq, live, 64, b * hkv)
+        designs.add(design)
+        errs[f"view {b}x{hq}/{hkv}x{sq} over {live} (offset {offset}) "
+             f"{str(dtype).split('.')[-1]} {design} x{nsplit}"] = \
+            _k3_close(got, want, dtype)
+    assert designs == {"tc_prefill", "fma", "split_decode"}, designs
     try:
         flash_attention(*(t.float().requires_grad_()
                           for t in _k3_inputs(1, 2, 2, 8, 8, 64, f32, gen)))
@@ -983,81 +1104,138 @@ def phase_flash_checks() -> dict:
         raise AssertionError("a CUDA tensor that requires grad did not raise")
     log(f"[kernel] flash_attention: {len(errs)} cases within f32 "
         f"{K3_TOL[f32]} / bf16 {K3_TOL[bf16]} (rtol and atol) of the plain "
-        f"version; Sq > Skv rows are 0; requires_grad raises; max abs err "
+        f"version, designs {sorted(designs)}; Sq > Skv rows are 0; "
+        f"requires_grad raises; max abs err "
         + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
     return errs
 
 
-def k3_work(b, hq, hkv, sq, dh, kv_len, offset) -> tuple[int, float]:
-    """(bytes, flops) one causal bf16 attention call must move and do on
-    this data: q, the live K/V and o once each; 4*Dh flops per visible
-    (query, key) pair and head (QK^T and PV)."""
-    nbytes = 2 * (2 * b * hq * sq * dh + 2 * b * hkv * kv_len * dh)
+def k3_work(b, hq, hkv, sq, dh, kv_len, offset,
+            elem: int = 2) -> tuple[int, float]:
+    """(bytes, flops) one causal attention call must move and do on this
+    data (``elem`` bytes per element): q, the live K/V and o once each;
+    4*Dh flops per visible (query, key) pair and head (QK^T and PV)."""
+    nbytes = elem * (2 * b * hq * sq * dh + 2 * b * hkv * kv_len * dh)
     pairs = int(np.clip(np.arange(sq) + offset + 1, 0, kv_len).sum())
     return nbytes, 4.0 * b * hq * dh * pairs
 
 
-def k3_bound_ms(nbytes: int, flops: float) -> tuple[float, str]:
-    """Least time for one bf16 call: bytes over HBM bandwidth or flops
-    over the bf16 tensor-core rate, whichever is larger."""
+def k3_bound_ms(nbytes: int, flops: float,
+                ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
+    """Least time for one call: bytes over HBM bandwidth or flops over
+    the peak for the operand type (bf16 tensor cores by default; f32 runs
+    at the CUDA cores' rate), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_OPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: K3's timed shapes, one per design: smollm-360m's served prefill and
+#: last decode step (bf16), and the f32 correctness run's prefill (batch
+#: 2 x 512) and its last decode step (519 live positions)
+K3_SHAPES = {
+    "prefill": dict(dtype=torch.bfloat16, b=8, s=1024),
+    "decode": dict(dtype=torch.bfloat16, b=8, live=1087),
+    "prefill_f32": dict(dtype=torch.float32, b=2, s=512),
+    "decode_f32": dict(dtype=torch.float32, b=2, live=519),
+}
+
+
+def k3_cuda_launches(fn, attempts: int = 3) -> int | None:
+    """CUDA kernels of K3 (names with ``k3_``) that one call of ``fn``
+    launches, counted in a ``torch.profiler`` trace of that call.  A
+    trace now and then holds no device event at all; the call is then
+    traced again, up to ``attempts`` times, and None (not measured) is
+    returned if no trace saw the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            n = sum(ev.count for ev in device if "k3_" in ev.key)
+            assert n >= 1, \
+                f"no K3 kernel in the trace: {[ev.key for ev in device]}"
+            return n
+    return None
+
+
 def measure_flash(kind: str, flush, gen) -> dict:
-    """K3 at one served shape (bf16): ``prefill`` q [8,15,1024,64] over
-    k/v [8,5,1024,64], or ``decode`` one query row per head against 1087
-    live positions of a [8,1088,5,64] cache view.  Kernel vs plain
-    version, then kernel, plain and library-call times; the library call
-    is ``scaled_dot_product_attention`` with an explicit decode-convention
-    mask (its ``is_causal`` aligns the mask top-left when Sq != Skv) and
-    ``enable_gqa=True``."""
+    """K3 at one of ``K3_SHAPES`` (smollm-360m's 15 query over 5 KV heads
+    of 64): the prefill as q [b,15,s,64] over k/v [b,5,s,64], causal; the
+    decode step as one query row per head against ``live`` positions of
+    a [b, live+1, 5, 64] cache view.  Kernel vs plain version, then
+    kernel, plain and library-call times.  The library calls are
+    ``scaled_dot_product_attention`` with ``enable_gqa=True`` and an
+    explicit decode-convention mask and, where Sq == Skv, with
+    ``is_causal=True`` (which aligns the mask top-left, the same function
+    there, and may take a faster backend); ``library_ms`` is the faster
+    of the two and ``library_call`` names it.  ``cuda_launches_per_call``
+    is counted by the profiler around one call (:func:`k3_cuda_launches`)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if kind == "prefill":
-        q, k, v = _k3_inputs(8, 15, 5, 1024, 1024, 64, torch.bfloat16, gen)
+    sh = K3_SHAPES[kind]
+    dtype, b, hq, hkv, dh = sh["dtype"], sh["b"], 15, 5, 64
+    if "s" in sh:
+        q, k, v = _k3_inputs(b, hq, hkv, sh["s"], sh["s"], dh, dtype, gen)
         qh, kh, vh = q, k, v
-        offset, kv_len = 0, 1024
+        offset, kv_len = 0, sh["s"]
 
         def kernel():
             return flash_attention(q, k, v)
     else:
-        q, k, v = decode_view(gen)
+        q, k, v = decode_view(gen, dtype, b, sh["live"], hq, hkv, dh)
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        kv_len = k.shape[1]
+        kv_len = sh["live"]
         offset = kv_len - 1
 
         def kernel():
             return attention_bshd(q, k, v, offset=offset, kv_len=kv_len)
-    b, hq, sq, dh = qh.shape
-    hkv = kh.shape[1]
+    sq = qh.shape[2]
+    design, nsplit = plan(dtype, hq // hkv * sq, kv_len, dh, b * hkv)
 
     def plain():
         return attention_ref(qh, kh, vh, offset=offset, kv_len=kv_len)
 
     mask = (torch.arange(kv_len, device="cuda")[None, :]
             <= torch.arange(sq, device="cuda")[:, None] + offset)
-
-    def library():
-        return sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+    libraries = {"sdpa_explicit_mask": lambda: sdpa(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True)}
+    if sq == kv_len:
+        libraries["sdpa_is_causal"] = lambda: sdpa(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
 
     got = kernel()
     want = plain()
     torch.cuda.synchronize()
-    if kind == "decode":
+    if "live" in sh:
         got = got.transpose(1, 2)
-    err = _k3_close(got, want, torch.bfloat16)
-    _k3_close(library(), want, torch.bfloat16)   # the yardstick agrees
+    err = _k3_close(got, want, dtype)
+    for lib in libraries.values():          # the yardsticks agree
+        _k3_close(lib(), want, dtype)
     del got, want
+    launches = k3_cuda_launches(kernel)
     ms = time_cuda(kernel, flush=flush)
     plain_ms = time_cuda(plain, flush=flush)
-    lib_ms = time_cuda(library, flush=flush)
-    nbytes, flops = k3_work(b, hq, hkv, sq, dh, kv_len, offset)
-    bms, by = k3_bound_ms(nbytes, flops)
-    return {"kind": kind, "b": b, "hq": hq, "hkv": hkv, "sq": sq,
-            "kv_len": kv_len, "dh": dh, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
-            "bound_by": by, "bytes": nbytes, "flops": flops,
+    lib_ms = {name: time_cuda(lib, flush=flush)
+              for name, lib in libraries.items()}
+    best = min(lib_ms, key=lib_ms.get)
+    elem = 2 if dtype == torch.bfloat16 else 4
+    nbytes, flops = k3_work(b, hq, hkv, sq, dh, kv_len, offset, elem)
+    bms, by = k3_bound_ms(nbytes, flops, BF16_OPS_PER_S if elem == 2
+                          else FP32_OPS_PER_S)
+    return {"kind": kind, "design": design, "nsplit": nsplit,
+            "cuda_launches_per_call": launches,
+            "dtype": str(dtype).split(".")[-1], "b": b, "hq": hq,
+            "hkv": hkv, "sq": sq, "kv_len": kv_len, "dh": dh,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library": lib_ms, "library_ms": lib_ms[best],
+            "library_call": best, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "flops": flops,
             "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
             "tflop_per_s": flops / (ms * 1e-3) / 1e12}
 
@@ -1192,9 +1370,17 @@ def main(argv=None) -> int:
         spills = [line for line in out.splitlines()
                   if "spill" in line and "0 bytes spill stores, 0 bytes spill "
                   "loads" not in line]
+        if not regs:
+            log(f"[build] {name}: library already built (no ptxas report)")
+            continue
         log(f"[build] {name}: {len(regs)} kernels, registers "
             f"{min(regs)}-{max(regs)} per thread, "
             f"{len(spills)} with spills (ptxas -v)")
+    k3_build = k3_instantiations(ptxas["flash_attention"], nvcc)
+    for row in k3_build:
+        log(f"[build] flash_attention {row['kernel']}: {row['registers']} "
+            f"registers, {row['smem_bytes']} B dynamic shared memory, spill "
+            f"stores/loads {row['spill_stores']}/{row['spill_loads']} B")
 
     # phase 3: kernels vs plain versions on the card
     large = phase_kernel_checks(args.large_log2)
@@ -1310,15 +1496,18 @@ def main(argv=None) -> int:
     assert lm_check["launches"] == lm_cfg.n_layers * 8, lm_check["launches"]
     full, yard = (lm_check["full_depth_k3_vs_plain"],
                   lm_check["full_depth_dense_vs_chunked"])
+    sh = {k[7:]: x for k, x in lm_check.items() if k.startswith("shadow_")}
     log(f"[lm] {lm_cfg.name} f32 ({lm_cfg.n_layers} layers, d_model "
         f"{lm_cfg.d_model}, {lm_cfg.n_heads}/{lm_cfg.n_kv_heads} heads, "
         f"vocab {lm_cfg.vocab}): batch 2 x 512-token prompts, 8 tokens; "
-        f"{lm_check['shadow_calls']} attention calls on the K3 path each "
-        f"within {K3_TOL[torch.float32]} x max(1, max|v|) of f64 attention "
-        f"on the same inputs (max abs err "
-        f"{lm_check['shadow_max_abs_err']:.3g}; the plain f32 path's "
-        f"{lm_check['shadow_plain_max_abs_err']:.3g}); "
-        f"{lm_check['launches']} K3 launches")
+        f"{sh['calls']} attention calls on the K3 path each within rtol "
+        f"{K3_TOL[torch.float32]}, atol {K3_TOL[torch.float32]} x max(1, "
+        f"max|v|) (per call {sh['atol_min']:.4g}-{sh['atol_max']:.4g}) of "
+        f"f64 attention on the same inputs (max abs err "
+        f"{sh['max_abs_err']:.3g}, at most {sh['worst_err_over_atol']:.3g} "
+        f"of its call's atol; the plain f32 path's "
+        f"{sh['plain_max_abs_err']:.3g}); {lm_check['launches']} K3 "
+        f"launches")
     log(f"[lm] end to end at {lm_check['e2e_layers']} layers: logits within "
         f"{LM_TOL} of the plain path (max abs err "
         f"{lm_check['max_abs_err']:.3g} over {lm_check['steps_compared']} "
@@ -1345,9 +1534,14 @@ def main(argv=None) -> int:
     # after the count: where the card's time goes, by kernel class
     lm["device_split"] = split = lm_device_split(
         lm_cfg, lm_params, args.lm_batch, args.lm_prompt_len, 3)
-    del lm_params
     assert lm_k3 == lm["launches"] == lm_cfg.n_layers * args.lm_tokens, \
         (lm_k3, lm["launches"])
+    # the served dtype at full depth, every attention call held to f64 on
+    # the same inputs (prefill: tc_prefill; decode steps: split_decode)
+    shadow = phase_lm_shadow(device, lm_cfg, lm_params, args.lm_batch,
+                             args.lm_prompt_len, LM_SHADOW_TOKENS)
+    del lm_params
+    assert shadow["launches"] == shadow["calls"], shadow
     log(f"[lm] {lm_cfg.name} bf16: {args.lm_batch} x {args.lm_prompt_len}"
         f"-token prompts, {args.lm_tokens} tokens: prefill "
         f"{lm['prefill_ms']:.3f} ms ({lm['prefill_flops']:.4g} FLOP by "
@@ -1357,6 +1551,23 @@ def main(argv=None) -> int:
         f"{lm['tokens_per_s']:.1f} tokens/s; K3 launches {lm_k3} "
         f"({lm_cfg.n_layers} prefill + {args.lm_tokens - 1} x "
         f"{lm_cfg.n_layers} decode)")
+    g, pairs = lm_cfg.n_heads // lm_cfg.n_kv_heads, \
+        args.lm_batch * lm_cfg.n_kv_heads
+    prefill_design = plan(lm_cfg.dtype, g * args.lm_prompt_len,
+                          args.lm_prompt_len, lm_cfg.d_head, pairs)[0]
+    decode_design = plan(lm_cfg.dtype, g, args.lm_prompt_len + 1,
+                         lm_cfg.d_head, pairs)[0]
+    log(f"[lm] {lm_cfg.name} bf16 shadow: {args.lm_batch} x "
+        f"{args.lm_prompt_len}-token prompts, {LM_SHADOW_TOKENS} "
+        f"tokens, {shadow['calls']} attention calls on the K3 path "
+        f"(prefill {prefill_design}, decode {decode_design}) each within "
+        f"rtol {K3_TOL[torch.bfloat16]}, atol {K3_TOL[torch.bfloat16]} x "
+        f"max(1, max|v|) (per call {shadow['atol_min']:.4g}-"
+        f"{shadow['atol_max']:.4g}) of f64 attention on the same inputs "
+        f"(max abs err {shadow['max_abs_err']:.3g}, at most "
+        f"{shadow['worst_err_over_atol']:.3g} of its call's atol; the plain "
+        f"bf16 path's {shadow['plain_max_abs_err']:.3g}); "
+        f"{shadow['launches']} K3 launches")
     for part, sp in split.items():
         dev = sp["device_ms"]
         log(f"[lm] {part} (torch.profiler, per "
@@ -1368,24 +1579,30 @@ def main(argv=None) -> int:
         log(f"[lm] {part} top kernels (ms, launches, name): " + "; ".join(
             f"{ms:.3f} {n} {name}" for ms, n, name in sp["top_kernels"]))
 
-    # phase 13: K3 at the two served shapes
+    # phase 13: K3 per design: the two served shapes (bf16) and the f32
+    # correctness run's two
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     k3 = {}
-    for kind in ("prefill", "decode"):
+    for kind in K3_SHAPES:
         r = k3[kind] = measure_flash(kind, flush, gen)
-        log(f"[kernel] flash_attention {kind} q[{r['b']},{r['hq']},"
-            f"{r['sq']},{r['dh']}] over {r['kv_len']} keys x {r['hkv']} "
-            f"heads: kernel {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+        log(f"[kernel] flash_attention {kind} ({r['design']}, nsplit "
+            f"{r['nsplit']}, CUDA launches per call (profiler) "
+            f"{r['cuda_launches_per_call'] or 'not measured'}) "
+            f"{r['dtype']} q[{r['b']},{r['hq']},{r['sq']},{r['dh']}] over "
+            f"{r['kv_len']} keys x {r['hkv']} heads: kernel "
+            f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})  {r['tflop_per_s']:.2f} TFLOP/s  "
             f"{r['gb_per_s']:.1f} GB/s  plain {r['plain_ms']:.4f} ms  "
-            f"library_ms (sdpa, explicit mask) {r['library_ms']:.4f}  "
-            f"max_abs_err {r['max_abs_err']:.3g}")
+            + "  ".join(f"{name} {t:.4f} ms"
+                        for name, t in r["library"].items())
+            + f"  max_abs_err {r['max_abs_err']:.3g}")
     results.update(load=load, serve=serve, logcsr=logcsr, crossover=cross,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
                    segment_sum_cases=k2_cases, flash_attention=k3,
-                   flash_attention_cases=k3_cases, lm_check=lm_check,
-                   lm_serve=lm,
+                   flash_attention_cases=k3_cases,
+                   flash_attention_build=k3_build, lm_check=lm_check,
+                   lm_serve=lm, lm_shadow=shadow,
                    kernel_main_path=k1, graph={
                        "scale": args.scale, "vertices": csr.n_vertices,
                        "edges": csr.n_edges, "generate_s": gen_s,
@@ -1422,10 +1639,17 @@ def main(argv=None) -> int:
         "bound_ms": k3["prefill"]["bound_ms"],
         "bound_by": k3["prefill"]["bound_by"],
         "library_ms": k3["prefill"]["library_ms"],
+        "library_call": k3["prefill"]["library_call"],
         "shape": "bf16 q[8,15,1024,64] k/v[8,5,1024,64] causal (prefill)",
+        "design": k3["prefill"]["design"],
         "decode": {key: k3["decode"][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "design", "nsplit", "cuda_launches_per_call", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call",
             "max_abs_err")},
+        "designs": {kind: {key: r[key] for key in (
+            "design", "dtype", "nsplit", "cuda_launches_per_call", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "max_abs_err")} for kind, r in k3.items()},
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,7 @@ from repro_torch.kernels.compbin_decode import (compbin_decode,
                                                 compbin_decode_ref)
 from repro_torch.kernels.flash_attention import (attention_bshd,
                                                  attention_ref,
-                                                 flash_attention)
+                                                 flash_attention, plan)
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
 from repro_torch.query import NeighborQueryEngine
 
@@ -156,6 +156,98 @@ def test_flash_attention_on_a_strided_cache_view(cuda):
         attention_bshd(q.float().requires_grad_(), k.float(), v.float())
     with pytest.raises(ValueError, match="Dh"):
         flash_attention(*(torch.zeros(1, 2, 4, 32, device=cuda),) * 3)
+
+
+def _bf16(rng, *shape, scale=1.0, device="cuda"):
+    a = rng.standard_normal(shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("Sq", [63, 64, 65, 100, 128, 129, 300, 1024])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_prefill_across_its_tile_edges(cuda, Sq, Dh, causal):
+    """bf16 prefill on the tensor cores: row counts either side of the
+    64-row warpgroup and 128-row block, key counts off the 64-key tile."""
+    rng = np.random.default_rng(Sq * Dh + causal)
+    q = _bf16(rng, 1, 2, Sq, Dh, scale=0.3)
+    k, v = _bf16(rng, 1, 2, Sq, Dh, scale=0.3), _bf16(rng, 1, 2, Sq, Dh)
+    assert plan(torch.bfloat16, Sq, Sq, Dh, 2)[0] == "tc_prefill"
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v,
+                                                          causal=causal),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_tc_prefill_on_views_with_unseeing_rows(cuda, Dh):
+    """q, k and v as [B, S, H, Dh] slices of one fused projection (GQA,
+    3 query heads per KV head), Sq > Skv: the first rows see no key and
+    must be exactly 0."""
+    rng = np.random.default_rng(Dh)
+    B, S, Hq, Hkv, skv = 2, 150, 6, 2, 100
+    qkv = _bf16(rng, B, S, (Hq + 2 * Hkv) * Dh, scale=0.3)
+    q = qkv[..., :Hq * Dh].view(B, S, Hq, Dh)
+    k = qkv[:, :skv, Hq * Dh:(Hq + Hkv) * Dh].view(B, skv, Hkv, Dh)
+    v = qkv[:, :skv, (Hq + Hkv) * Dh:].view(B, skv, Hkv, Dh) * 3
+    assert not q.is_contiguous() and not k.is_contiguous()
+    out = attention_bshd(q, k, v)
+    torch.cuda.synchronize()
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2)).transpose(1, 2)
+    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+    assert not out[:, :S - skv].any()
+
+
+@pytest.mark.parametrize("kv_len", [1, 5, 64, 65, 1087, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_on_a_strided_cache_view(cuda, kv_len, dtype):
+    rng = np.random.default_rng(kv_len)
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, 2, kv_len + 9, 2, 64)).astype(np.float32)).to(cuda, dtype)
+    k, v = cache[0, :, :kv_len], cache[1, :, :kv_len]
+    q = torch.from_numpy(rng.standard_normal((2, 1, 6, 64)).astype(
+        np.float32) * 0.3).to(cuda, dtype)
+    assert not k.is_contiguous()
+    design, nsplit = plan(dtype, 3, kv_len, 64, 4)
+    assert design == "split_decode" and (nsplit > 1) == (kv_len >= 128)
+    before = flash_attention.launches
+    out = attention_bshd(q, k, v, offset=kv_len - 1, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), offset=kv_len - 1,
+                         kv_len=kv_len).transpose(1, 2)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_ranges_that_see_no_key(cuda, dtype):
+    """A 5-token chunk at offset 40 of a 1000-key cache: the keys are
+    split by kv_len, so every range past key 44 sees nothing; with
+    offset -10 no row sees anything and the output is 0."""
+    rng = np.random.default_rng(7)
+
+    def t(*shape, scale=1.0):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(cuda, dtype)
+    q, k, v = t(1, 5, 6, 64, scale=0.3), t(1, 1000, 2, 64, scale=0.3), \
+        t(1, 1000, 2, 64)
+    assert plan(dtype, 15, 1000, 64, 2)[1] > 1
+    out = attention_bshd(q, k, v, offset=40, kv_len=1000)
+    torch.cuda.synchronize()
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), offset=40,
+                         kv_len=1000).transpose(1, 2)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want, rtol=tol, atol=tol)
+    none = attention_bshd(q, k, v, offset=-10, kv_len=1000)
+    torch.cuda.synchronize()
+    assert torch.isfinite(none).all() and not none.any()
 
 
 def test_lm_serving_goes_through_the_kernel(cuda):

@@ -205,3 +205,133 @@ def test_flash_attention_bounds(smoke):
     # rows that see no key cost nothing
     assert smoke.k3_work(1, 2, 2, 40, 64, 16, -24)[1] == \
         4 * 2 * 64 * sum(min(16, max(0, i - 23)) for i in range(40))
+
+
+def test_lm_shadow_phase_on_cpu(smoke):
+    """The served-dtype shadow phase at the reduced smollm-360m config in
+    bf16: every call is held to f64 (on the CPU the plain path serves)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch("smollm-360m").make_reduced(),
+                              dtype=torch.bfloat16)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    out = smoke.phase_lm_shadow("cpu", cfg, params, batch=2, prompt_len=12,
+                                n_tokens=3)
+    assert out["calls"] == cfg.n_layers * 3 and out["launches"] == 0
+    assert out["max_abs_err"] == out["plain_max_abs_err"]
+
+
+def _drop_last_key(q, k, v, cfg, *, causal, q_offset=0):
+    """Attention that misses the last key each call should see."""
+    from repro_torch.kernels.flash_attention import attention_bshd
+    live = q_offset + q.shape[1]
+    return attention_bshd(q, k[:, :live], v[:, :live], causal=causal,
+                          offset=q_offset, kv_len=live - 1)
+
+
+def _zeros(q, k, v, cfg, *, causal, q_offset=0):
+    return torch.zeros_like(q)
+
+
+@pytest.mark.parametrize("fault", [_zeros, _drop_last_key])
+def test_lm_shadow_phase_detects_a_planted_fault(smoke, monkeypatch, fault):
+    """The bf16 shadow phase with the served attention broken.  V is
+    scaled up to the ~60 the full-width served model reaches, where a
+    relative tolerance scaled with max|v| would exceed 1 and let any
+    output of the right size through."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch("smollm-360m").make_reduced(),
+                              dtype=torch.bfloat16)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    params["layers"]["wv"] = params["layers"]["wv"] * 4
+    out = smoke.phase_lm_shadow("cpu", cfg, params, batch=2, prompt_len=12,
+                                n_tokens=3)
+    assert out["atol_max"] > 1.0            # rtol stays 2e-2 all the same
+    monkeypatch.setattr(tf, "attention", fault)
+    with pytest.raises(AssertionError, match="!= f64 attention"):
+        smoke.phase_lm_shadow("cpu", cfg, params, batch=2, prompt_len=12,
+                              n_tokens=3)
+    assert tf.attention is fault            # restored
+
+
+def test_shadow_attention_tolerance_is_relative_plus_scaled_floor(
+        smoke, monkeypatch):
+    """One bf16 call with max|v| = 60, so atol is 2e-2 x 60 = 1.2 while
+    rtol stays 2e-2: the plain path passes; an output 10 % off the truth
+    and zeros both fail (both would pass a relative tolerance of 1.2)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch("smollm-360m").make_reduced(),
+                              dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 6, cfg.n_heads, cfg.d_head, generator=gen) * 0.3
+    k = torch.randn(2, 6, cfg.n_kv_heads, cfg.d_head, generator=gen) * 0.3
+    v = torch.randn(2, 6, cfg.n_kv_heads, cfg.d_head, generator=gen)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v * (60 / v.abs().max())))
+    plain = tf.attention_plain
+    for served, ok in ((plain, True),
+                       (lambda *a, **kw: plain(*a, **kw) * 1.1, False),
+                       (_zeros, False)):
+        monkeypatch.setattr(tf, "attention", served)
+        errs: list = []
+        with smoke.shadow_attention(errs):
+            if ok:
+                tf.attention(q, k, v, cfg, causal=True)
+                assert errs[0][2] == pytest.approx(2e-2 * 60)
+            else:
+                with pytest.raises(AssertionError, match="rtol 0.02,"):
+                    tf.attention(q, k, v, cfg, causal=True)
+
+
+def test_flash_attention_f32_bounds_and_shapes(smoke):
+    # f32 moves 4 bytes an element and runs at the CUDA cores' rate
+    nbytes, flops = smoke.k3_work(2, 15, 5, 512, 64, 512, 0, elem=4)
+    assert nbytes == 2 * smoke.k3_work(2, 15, 5, 512, 64, 512, 0)[0]
+    ms, by = smoke.k3_bound_ms(nbytes, flops, smoke.FP32_OPS_PER_S)
+    assert by == "operations" and ms == pytest.approx(flops / 67e12 * 1e3)
+    # one timed shape per design, each with the design it is named for
+    from repro_torch.kernels.flash_attention import plan
+    want = {"prefill": "tc_prefill", "decode": "split_decode",
+            "prefill_f32": "fma", "decode_f32": "split_decode"}
+    for kind, sh in smoke.K3_SHAPES.items():
+        sq, kv = (sh["s"], sh["s"]) if "s" in sh else (1, sh["live"])
+        assert plan(sh["dtype"], 3 * sq, kv, 64, 5 * sh["b"])[0] == want[kind]
+
+
+def test_k3_build_report_names_the_fma_designs(smoke, monkeypatch):
+    """k3_fma serves f32 prefill (SPLIT false) and f32 split decode
+    (SPLIT true); the report tells the two apart."""
+    from repro_torch.kernels.flash_attention import kernel
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12cc6k3_fmaILi64ELb0EEEvNS_6ParamsEPf' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12cc6k3_fmaILi128ELb1EEEvNS_6ParamsEPf' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers
+"""
+    monkeypatch.setattr(kernel, "smem_bytes",
+                        lambda design, dh, bf16: 1000 * design + dh + bf16)
+    rows = smoke.k3_instantiations(log, "/nonexistent/nvcc")
+    assert [(r["registers"], r["smem_bytes"]) for r in rows] == \
+        [(64, 1064), (72, 2128)]
+
+
+def test_k3_build_report_parses_ptxas(smoke, monkeypatch):
+    from repro_torch.kernels.flash_attention import kernel
+    log = """ptxas info    : Compiling entry function '_ZN1_2tc5k3_tcILi64ELi2ELb0EEEvNS_6ParamsEPf' for 'sm_90a'
+ptxas info    : Function properties for x
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN1_2sd16k3_split_combineIfLi128EEEvNS_6ParamsEPKfi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+    monkeypatch.setattr(kernel, "smem_bytes",
+                        lambda design, dh, bf16: 1000 * design + dh + bf16)
+    rows = smoke.k3_instantiations(log, "/nonexistent/nvcc")
+    assert [(r["registers"], r["spill_stores"], r["spill_loads"],
+             r["smem_bytes"]) for r in rows] == [(118, 8, 4, 65), (32, 0, 0, 0)]
