@@ -7,14 +7,17 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
 It builds every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card (the
-decode bit for bit, the segment sum to f32 rounding, flash attention's
-three designs -- tensor-core prefill, split decode, f32 FMA -- to the JAX
-package's kernel tolerances), drives the port's main paths
-through the library entry points -- load a CompBin graph into HBM
-through PG-Fuse, answer batches of neighbor queries from the same file,
-serve GCN inference requests at gcn-cora's full width (sample through
-the query engine, gather feature rows from the feature store, one
-transfer, forward pass with the segment-sum kernel), and serve
+decode bit for bit; the segment sum's two designs -- rows, atomic -- to
+f32 rounding on the JAX sweep's shapes and nine id layouts, and rows
+bit for bit to itself on the served ids; flash attention's three
+designs -- tensor-core prefill, split decode, f32 FMA -- to the JAX
+package's kernel tolerances),
+drives the port's main paths through the library entry points -- load
+a CompBin graph into HBM through PG-Fuse, answer batches of neighbor
+queries from the same file, serve GCN inference requests at gcn-cora's
+full width (sample through the query engine, gather feature rows from
+the feature store, one transfer, forward pass with the segment-sum
+kernel), and serve
 smollm-360m at full width and depth (prefill + greedy decode against a
 KV cache, every attention on the flash-attention kernel; then again in
 bf16 with every attention call held to f64) -- checks every result
@@ -64,8 +67,11 @@ from repro_torch.kernels.compbin_decode import (compbin_decode,  # noqa: E402
 from repro_torch.kernels.flash_attention import (attention_bshd,  # noqa: E402
                                                  attention_ref,
                                                  flash_attention, plan)
+from repro_torch.kernels.segment_sum import plan as k2_plan  # noqa: E402
 from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
                                              segment_sum_ref)
+from repro_torch.kernels.segment_sum.ops import (  # noqa: E402
+    DESIGNS as K2_DESIGNS, _segment_sum_design)
 from repro_torch.query import NeighborQueryEngine  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the roofline the
@@ -896,58 +902,182 @@ def phase_kernel_checks(large_log2: int) -> list:
     return rows
 
 
-def _k2_close(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def _k2_close(got: torch.Tensor, want: torch.Tensor, dtype,
+              what: str = "") -> float:
     rtol, atol = K2_TOL[dtype]
-    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert got.dtype == torch.float32 and got.shape == want.shape, \
+        (what, got.shape, want.shape)
     err = float((got - want).abs().max()) if got.numel() else 0.0
     assert torch.allclose(got, want, rtol=rtol, atol=atol), \
-        f"segment_sum kernel != plain version (max abs err {err})"
+        f"segment_sum {what} != plain version (max abs err {err})"
     return err
 
 
-def phase_segment_sum_checks() -> int:
-    """K2 vs its plain version on the card: the five shapes of the JAX
-    package's sweep x {f32, bf16} with ids drawn from [-1, N), more
-    segments than the TPU kernel takes (N > 8192), ids >= N, E = 0,
-    N = 0, and the refusal of a tensor that requires grad."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    cases = [(64, 16, 4), (513, 200, 7), (2048, 128, 1024), (100, 1, 100),
-             (1, 8, 1)]
+def served_tree_ids(n_seeds: int, fanouts=(5, 5), p_valid: float = 0.7,
+                    seed: int = 0) -> tuple[np.ndarray, int]:
+    """``edge_dst`` (int32) and node count of a padded tree block of
+    ``n_seeds`` seeds as the GCN server lays them out
+    (:func:`repro_torch.launch.data_gnn.block_to_edges`): ascending, with
+    -1 holes.  A slot is valid with probability ``p_valid`` where its
+    parent is (0.7 gives the ~53 % of valid slots the served blocks
+    have)."""
+    from types import SimpleNamespace
+    from repro_torch.launch.data_gnn import block_to_edges
+    rng = np.random.default_rng(seed)
+    valid = [np.ones(n_seeds, bool)]
+    for f in fanouts:
+        valid.append(np.repeat(valid[-1], f)
+                     & (rng.random(valid[-1].size * f) < p_valid))
+    block = SimpleNamespace(layer_nodes=[np.zeros(v.size, np.int64)
+                                         for v in valid],
+                            layer_valid=valid, fanouts=tuple(fanouts))
+    _, dst, n = block_to_edges(block)
+    return dst.astype(np.int32), n
+
+
+#: (E, D, N) of the JAX package's segment-sum sweep, and N > 8192
+K2_SWEEP = ((64, 16, 4), (513, 200, 7), (2048, 128, 1024), (100, 1, 100),
+            (1, 8, 1), (40000, 24, 20000))
+#: int64 ids that narrowing to int32 would wrap into [0, N)
+WIDE_IDS = (2 ** 32, 2 ** 32 + 5, -2 ** 32 + 3, 2 ** 31)
+#: the id layouts every K2 design is held to (:func:`k2_layout`)
+K2_LAYOUTS = ("served", "sorted", "permuted", "all_invalid", "one_segment",
+              "ids_ge_n", "many_segments", "no_edges", "wide")
+
+
+def k2_layout(kind: str, rng: np.random.Generator):
+    """``(ids, n, d, exact)`` of one K2 check: ``served`` the tree layout
+    at 64 seeds and Cora's width; ``sorted`` ascending ids with no hole;
+    ``permuted`` the same ids shuffled; ``all_invalid`` -1 and ids >= N
+    only; ``one_segment`` every edge into one row; ``ids_ge_n`` ascending
+    over [-1, N+5); ``many_segments`` N = 20,000 (the TPU kernel's cliff
+    is 8192); ``no_edges`` E = 0 with N*D > 0; ``wide`` ascending int64
+    ids with :data:`WIDE_IDS` among them.  ``exact``: the messages are
+    small integers, so every order of the adds gives the same f32 sum
+    and the check is bit for bit (one row takes all E terms, whose
+    rounding in f32 would otherwise grow with E)."""
+    e, n, d, exact = 3000, 500, 67, False
+    if kind == "served":
+        ids, n = served_tree_ids(64, seed=int(rng.integers(1 << 30)))
+        return ids, n, 1433, False
+    if kind in ("sorted", "permuted"):
+        n = 1200
+        ids = np.sort(rng.integers(0, n, 5000))
+        if kind == "permuted":
+            ids = rng.permutation(ids)
+    elif kind == "all_invalid":
+        ids = rng.choice(np.array([-1, -5, n, n + 7]), e)
+    elif kind == "one_segment":
+        ids, n, exact = np.full(4000, 3), 10, True
+    elif kind == "ids_ge_n":
+        ids = np.sort(rng.integers(-1, n + 5, e))
+    elif kind == "many_segments":
+        n, d = 20000, 24
+        ids = np.sort(rng.integers(-1, n, 40000))
+    elif kind == "no_edges":
+        ids, n = np.zeros(0), 37
+    elif kind == "wide":
+        ids = np.sort(rng.integers(-1, n, e))
+        at = np.sort(rng.choice(e, 4 * len(WIDE_IDS), replace=False))
+        ids[at] = np.tile(WIDE_IDS, 4)
+        return ids.astype(np.int64), n, d, False
+    else:
+        raise ValueError(kind)
+    return ids.astype(np.int32), n, d, exact
+
+
+def _k2_messages(e: int, d: int, exact: bool, rng, device, dtype):
+    a = (rng.integers(-8, 9, (e, d)) if exact
+         else rng.standard_normal((e, d))).astype(np.float32)
+    return torch.from_numpy(a).to(device, dtype)
+
+
+def check_k2_determinism(device, n_seeds: int = 1024, d: int = 1433,
+                         seed: int = 3) -> dict:
+    """The ``rows`` design twice on the served layout (``n_seeds`` seeds,
+    fanouts (5, 5), Cora's width by default): the two results must be
+    equal bit for bit.  Also reports whether they equal the plain version
+    run on the CPU bit for bit (both sum each row from +0.0 in edge
+    order)."""
+    ids_np, n = served_tree_ids(n_seeds, seed=seed)
+    rng = np.random.default_rng(seed)
+    msgs = _k2_messages(ids_np.size, d, False, rng, device, torch.float32)
+    ids = torch.from_numpy(ids_np).to(device)
+    first = _segment_sum_design(msgs, ids, n, "rows")
+    second = _segment_sum_design(msgs, ids, n, "rows")
+    equal = torch.equal(first, second)
+    diff = 0 if equal else int((first != second).sum())
+    assert equal, (f"segment_sum rows is not bit-identical across two "
+                   f"calls on the served ids ({diff} elements differ)")
+    cpu = segment_sum_ref(msgs.cpu(), ids.cpu(), n)
+    return {"e": ids_np.size, "d": d, "n": n,
+            "valid_edges": int((ids_np >= 0).sum()),
+            "rows_equal_across_calls": True,
+            "rows_equal_cpu_plain": bool(torch.equal(first.cpu(), cpu)),
+            "max_abs_err_vs_cpu_plain": float(
+                (first.cpu() - cpu).abs().max())}
+
+
+def phase_segment_sum_checks(device="cuda", seed: int = 2,
+                             n_seeds: int = 1024) -> dict:
+    """K2 vs its plain version: each design (forced through
+    ``_segment_sum_design``) and the public path on the JAX package's
+    sweep shapes (:data:`K2_SWEEP`, random ids over [-1, N) and [-1, N+3))
+    and on every layout of :data:`K2_LAYOUTS`, in f32 and bf16, within
+    ``K2_TOL`` (bit for bit where the layout is exact); one call-count of
+    ``segment_sum.launches`` per call that has work; E = 0, N = 0 and
+    D = 0 giving zeros of the right shape; then the ``rows`` design's
+    determinism on the served ids (:func:`check_k2_determinism`) and, on
+    the card, the refusal of a tensor that requires grad."""
+    on_gpu = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed)
+    cases = [(f"sweep E={e} D={d} N={n} ids<{hi}",
+              rng.integers(-1, hi, e).astype(np.int32), n, d, False)
+             for e, d, n in K2_SWEEP for hi in (n, n + 3)]
+    cases += [(kind,) + k2_layout(kind, rng) for kind in K2_LAYOUTS]
     n_cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for e, d, n in cases + [(40000, 24, 20000)]:
-            for hi in (n, n + 3):          # n + 3: ids >= N are dropped
-                msgs = torch.randn(e, d, generator=gen, device="cuda"
-                                   ).to(dtype)
-                ids = torch.randint(-1, hi, (e,), generator=gen,
-                                    device="cuda", dtype=torch.int32)
+    for kind, ids_np, n, d, exact in cases:
+        e = ids_np.size
+        ids = torch.from_numpy(ids_np).to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            msgs = _k2_messages(e, d, exact, rng, device, dtype)
+            want = segment_sum_ref(msgs, ids, n)
+            picked = k2_plan(e, d, n)
+            for name, design in [(m, m) for m in K2_DESIGNS] + [
+                    (f"public ({picked})", picked)]:
                 before = segment_sum.launches
-                got = segment_sum(msgs, ids, n)
-                assert segment_sum.launches == before + 1
-                _k2_close(got, segment_sum_ref(msgs, ids, n), dtype)
+                got = (segment_sum(msgs, ids, n) if name.startswith("public")
+                       else _segment_sum_design(msgs, ids, n, design))
+                work = n * d if design == "rows" else e * d * n
+                assert segment_sum.launches == before + int(
+                    on_gpu and work > 0), (kind, name)
+                what = f"{name} on {kind} ({str(dtype)[6:]})"
+                if exact:
+                    assert torch.equal(got, want), \
+                        f"segment_sum {what} != plain version (exact layout)"
+                else:
+                    _k2_close(got, want, dtype, what)
                 n_cases += 1
     for e, d, n in ((0, 8, 5), (7, 8, 0), (7, 0, 5)):
-        msgs = torch.randn(e, d, generator=gen, device="cuda")
-        ids = torch.randint(0, max(n, 1), (e,), generator=gen,
-                            device="cuda", dtype=torch.int32)
-        got = segment_sum(msgs, ids, n)
-        assert got.shape == (n, d) and not got.any()
-        n_cases += 1
-    try:
-        segment_sum(torch.ones(4, 2, device="cuda", requires_grad=True),
-                    torch.zeros(4, dtype=torch.int32, device="cuda"), 2)
-    except RuntimeError:
-        pass
-    else:
-        raise AssertionError("a CUDA tensor that requires grad did not raise")
-    torch.cuda.synchronize()
-    log(f"[kernel] segment_sum: {n_cases} cases (5 sweep shapes + N=20000, "
-        f"ids in [-1,N) and [-1,N+3), f32 and bf16, E=0/N=0/D=0) within "
-        f"f32 rtol/atol {K2_TOL[torch.float32]}, bf16 "
-        f"{K2_TOL[torch.bfloat16]} of the plain version; requires_grad "
-        f"raises")
-    return n_cases
+        msgs = torch.ones(e, d, device=device)
+        ids = torch.zeros(e, dtype=torch.int32, device=device)
+        for design in K2_DESIGNS:
+            got = _segment_sum_design(msgs, ids, n, design)
+            assert got.shape == (n, d) and not got.any(), (design, e, d, n)
+            n_cases += 1
+    det = check_k2_determinism(device, n_seeds)
+    if on_gpu:
+        try:
+            segment_sum(torch.ones(4, 2, device=device, requires_grad=True),
+                        torch.zeros(4, dtype=torch.int32, device=device), 2)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(
+                "a CUDA tensor that requires grad did not raise")
+        torch.cuda.synchronize()
+    return {"cases": n_cases, "layouts": list(K2_LAYOUTS),
+            "determinism": det}
 
 
 def k2_bytes(e: int, d: int, n: int, valid: int) -> int:
@@ -968,17 +1098,30 @@ def k2_bound_ms(e: int, d: int, n: int, valid: int) -> tuple[float, str]:
 
 def measure_segment_sum(ids: torch.Tensor, d: int, n: int, flush,
                         gen: torch.Generator) -> dict:
-    """K2 at one main-path shape: random f32 messages over the served
-    block's ``edge_dst``; kernel vs plain version, then kernel, plain and
-    library-call times."""
+    """K2 at one main-path shape: random f32 messages over ``ids`` (the
+    served block's ``edge_dst``, or a permutation of it).  Each design
+    against the plain version, its CUDA-event time and its CUDA launches
+    per call (the profiler around one call: K2's kernels with each one's
+    device time, and all kernels, the atomic design's zero-fill among
+    them; the trace's L2 is warm); then the plain
+    version's and the library call's (``zeros(N, D).index_add_`` on the
+    valid edges) times, and the design :func:`plan` picks."""
     e = ids.numel()
     msgs = torch.randn(e, d, generator=gen, device="cuda")
-    got = segment_sum(msgs, ids, n)
     want = segment_sum_ref(msgs, ids, n)
+    designs = {}
+    for design in K2_DESIGNS:
+        def call(m=design):
+            return _segment_sum_design(msgs, ids, n, m)
+        err = _k2_close(call(), want, torch.float32, f"{design} (timed)")
+        counted = cuda_launches(call, "k2_") or (None, None, None)
+        designs[design] = {
+            "ms": time_cuda(call, flush=flush), "max_abs_err": err,
+            "k2_launches_per_call": counted[0],
+            "cuda_launches_per_call": counted[1],
+            "kernel_device_ms": counted[2]}
+    del want
     torch.cuda.synchronize()
-    err = _k2_close(got, want, torch.float32)
-    del got, want
-    ms = time_cuda(lambda: segment_sum(msgs, ids, n), flush=flush)
     plain = time_cuda(lambda: segment_sum_ref(msgs, ids, n), flush=flush)
     valid = (ids >= 0) & (ids < n)
     lib_ids, lib_msgs = ids[valid].long(), msgs[valid]
@@ -986,11 +1129,55 @@ def measure_segment_sum(ids: torch.Tensor, d: int, n: int, flush,
         0, lib_ids, lib_msgs), flush=flush)
     n_valid = int(valid.sum())
     bms, by = k2_bound_ms(e, d, n, n_valid)
+    picked = k2_plan(e, d, n)
+    nbytes = k2_bytes(e, d, n, n_valid)
     return {"e": e, "d": d, "n": n, "valid_edges": n_valid,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "design": picked, "designs": designs,
+            "max_abs_err": designs[picked]["max_abs_err"],
+            "ms": designs[picked]["ms"], "plain_ms": plain,
             "library_ms": lib, "bound_ms": bms, "bound_by": by,
-            "bytes": k2_bytes(e, d, n, n_valid),
-            "gb_per_s": k2_bytes(e, d, n, n_valid) / (ms * 1e-3) / 1e9}
+            "bytes": nbytes,
+            "gb_per_s": nbytes / (designs[picked]["ms"] * 1e-3) / 1e9}
+
+
+def check_k2_plan_picks_the_faster(shapes: dict) -> None:
+    """``plan``'s design at each timed shape (:func:`measure_segment_sum`
+    results by label) must be the one measured faster there."""
+    for label, r in shapes.items():
+        fastest = min(r["designs"], key=lambda m: r["designs"][m]["ms"])
+        assert r["design"] == fastest, \
+            (f"plan picks {r['design']} at {label}, but {fastest} was "
+             f"faster: {r['designs']}")
+
+
+def phase_k2_plan_limits(ids: torch.Tensor, n: int, flush,
+                         gen: torch.Generator) -> dict:
+    """Both K2 designs on either side of ``plan``'s limits
+    (``ROWS_MIN_WIDTH``, ``ROWS_MAX_EDGES``): across D on the served ids
+    and on ascending ids drawn uniformly over [-1, E) with E = N = 2^17;
+    across E at Cora's width on such uniform ids.  CUDA-event ms of each
+    design, and the design ``plan`` picks."""
+    def both(x, nn, d):
+        msgs = torch.randn(x.numel(), d, generator=gen, device="cuda")
+        row = {m: time_cuda(lambda m=m: _segment_sum_design(msgs, x, nn, m),
+                            flush=flush, reps=5) for m in K2_DESIGNS}
+        row["plan"] = k2_plan(x.numel(), d, nn)
+        del msgs
+        torch.cuda.empty_cache()
+        return row
+
+    def uniform(e):
+        return torch.sort(torch.randint(-1, e, (e,), device="cuda",
+                                        generator=gen, dtype=torch.int32))[0]
+
+    out = {"width_served": {}, "width_uniform_2^17": {}, "edges_d1433": {}}
+    wide = uniform(1 << 17)
+    for d in (256, 384, 448, 512, 640, 768, 1024):
+        out["width_served"][d] = both(ids, n, d)
+        out["width_uniform_2^17"][d] = both(wide, 1 << 17, d)
+    for le in (18, 20, 21):
+        out["edges_d1433"][f"2^{le}"] = both(uniform(1 << le), 1 << le, 1433)
+    return out
 
 
 def _k3_close(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
@@ -1141,12 +1328,15 @@ K3_SHAPES = {
 }
 
 
-def k3_cuda_launches(fn, attempts: int = 3) -> int | None:
-    """CUDA kernels of K3 (names with ``k3_``) that one call of ``fn``
-    launches, counted in a ``torch.profiler`` trace of that call.  A
-    trace now and then holds no device event at all; the call is then
-    traced again, up to ``attempts`` times, and None (not measured) is
-    returned if no trace saw the card."""
+def cuda_launches(fn, prefix: str, attempts: int = 3) -> tuple | None:
+    """CUDA kernels that one call of ``fn`` launches, counted in a
+    ``torch.profiler`` trace of that call: ``(mine, all, device_ms)`` --
+    those whose name holds ``prefix`` (``k2_``, ``k3_``: the kernel's
+    own), all of them, and the device milliseconds of each of the
+    kernel's own by name.  A trace now and then holds no device event at
+    all; the call is then traced again, up to ``attempts`` times, and
+    None (not measured) is returned if no trace saw the card."""
+    import re
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
@@ -1158,10 +1348,13 @@ def k3_cuda_launches(fn, attempts: int = 3) -> int | None:
         device = [ev for ev in prof.key_averages()
                   if ev.device_type == torch.autograd.DeviceType.CUDA]
         if device:
-            n = sum(ev.count for ev in device if "k3_" in ev.key)
-            assert n >= 1, \
-                f"no K3 kernel in the trace: {[ev.key for ev in device]}"
-            return n
+            mine = [ev for ev in device if prefix in ev.key]
+            assert mine, (f"no {prefix} kernel in the trace: "
+                          f"{[ev.key for ev in device]}")
+            device_ms = {re.search(prefix + r"\w+", ev.key).group(0):
+                         ev.device_time_total / 1e3 for ev in mine}
+            return (sum(ev.count for ev in mine),
+                    sum(ev.count for ev in device), device_ms)
     return None
 
 
@@ -1176,7 +1369,7 @@ def measure_flash(kind: str, flush, gen) -> dict:
     ``is_causal=True`` (which aligns the mask top-left, the same function
     there, and may take a faster backend); ``library_ms`` is the faster
     of the two and ``library_call`` names it.  ``cuda_launches_per_call``
-    is counted by the profiler around one call (:func:`k3_cuda_launches`)."""
+    is counted by the profiler around one call (:func:`cuda_launches`)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sh = K3_SHAPES[kind]
     dtype, b, hq, hkv, dh = sh["dtype"], sh["b"], 15, 5, 64
@@ -1218,7 +1411,8 @@ def measure_flash(kind: str, flush, gen) -> dict:
     for lib in libraries.values():          # the yardsticks agree
         _k3_close(lib(), want, dtype)
     del got, want
-    launches = k3_cuda_launches(kernel)
+    counted = cuda_launches(kernel, "k3_")
+    launches = counted and counted[0]
     ms = time_cuda(kernel, flush=flush)
     plain_ms = time_cuda(plain, flush=flush)
     lib_ms = {name: time_cuda(lib, flush=flush)
@@ -1384,7 +1578,21 @@ def main(argv=None) -> int:
 
     # phase 3: kernels vs plain versions on the card
     large = phase_kernel_checks(args.large_log2)
-    k2_cases = phase_segment_sum_checks()
+    k2_checks = phase_segment_sum_checks()
+    det = k2_checks["determinism"]
+    log(f"[kernel] segment_sum: {k2_checks['cases']} cases (designs "
+        f"{'/'.join(K2_DESIGNS)} and the public path x the JAX sweep's "
+        f"{len(K2_SWEEP)} shapes with ids in [-1,N) and [-1,N+3) and "
+        f"layouts {', '.join(K2_LAYOUTS)} x f32/bf16, E=0/N=0/D=0) within "
+        f"f32 rtol/atol "
+        f"{K2_TOL[torch.float32]}, bf16 {K2_TOL[torch.bfloat16]} of the "
+        f"plain version (one_segment bit for bit); int64 ids "
+        f"{list(WIDE_IDS)} dropped by both designs; requires_grad raises")
+    log(f"[kernel] segment_sum rows on the served layout (E={det['e']}, "
+        f"{det['valid_edges']} valid, D={det['d']}, N={det['n']}): bit-"
+        f"identical across two calls; equal to the CPU plain version bit "
+        f"for bit: {det['rows_equal_cpu_plain']} (max abs err "
+        f"{det['max_abs_err_vs_cpu_plain']:.3g})")
     k3_cases = phase_flash_checks()
 
     results = {"device": smi, "kernel_large": large}
@@ -1471,19 +1679,40 @@ def main(argv=None) -> int:
             f"{t} {sec * 1e3:.3f}" for t, sec in
             sorted(gnn["tier_s_per_request"].items())))
 
-        # phase 10: K2 at the three shapes the served block gives it
+        # phase 10: K2 at the three shapes the served block gives it, and
+        # at layer 0 with the edges permuted; both designs each
         ids = torch.from_numpy(gnn.pop("edge_dst")).to(device)
         n_nodes = gnn.pop("n_nodes")
+        shuffled = ids[torch.randperm(ids.numel(), device=device,
+                                      generator=gen)]
         k2 = {}
-        for label, d in (("layer0", gnn["d_in"]), ("layer1", gnn["d_hidden"]),
-                         ("degree", 1)):
-            r = k2[label] = measure_segment_sum(ids, d, n_nodes, flush, gen)
+        for label, d, x in (("layer0", gnn["d_in"], ids),
+                            ("layer1", gnn["d_hidden"], ids),
+                            ("degree", 1, ids),
+                            ("layer0_permuted", gnn["d_in"], shuffled)):
+            r = k2[label] = measure_segment_sum(x, d, n_nodes, flush, gen)
             log(f"[kernel] segment_sum {label} E={r['e']} "
-                f"({r['valid_edges']} valid) D={r['d']} N={r['n']}: kernel "
-                f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})  {r['gb_per_s']:.1f} GB/s  plain "
-                f"{r['plain_ms']:.4f} ms  library_ms (index_add_) "
-                f"{r['library_ms']:.4f}  max_abs_err {r['max_abs_err']:.3g}")
+                f"({r['valid_edges']} valid) D={r['d']} N={r['n']}: plan "
+                f"picks {r['design']}; " + "; ".join(
+                    f"{m} {v['ms']:.4f} ms (CUDA launches per call "
+                    f"(profiler): {v['k2_launches_per_call']} K2, "
+                    f"{v['cuda_launches_per_call']} in all; device ms "
+                    + ", ".join(f"{k} {t:.4f}" for k, t in
+                                (v["kernel_device_ms"] or {}).items())
+                    + f"; max_abs_err {v['max_abs_err']:.3g})"
+                    for m, v in r["designs"].items())
+                + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['gb_per_s']:.1f} GB/s; plain {r['plain_ms']:.4f} ms; "
+                f"library_ms (index_add_) {r['library_ms']:.4f}")
+
+        check_k2_plan_picks_the_faster({label: k2[label] for label in (
+            "layer0", "layer1", "degree")})
+        k2_limits = phase_k2_plan_limits(ids, n_nodes, flush, gen)
+        for sweep, rows in k2_limits.items():
+            log(f"[kernel] segment_sum plan limits, {sweep} (ms atomic / "
+                f"rows, plan's pick): " + "; ".join(
+                    f"{key}: {r['atomic']:.4f} / {r['rows']:.4f} "
+                    f"{r['plan']}" for key, r in rows.items()))
 
     # phase 11: LM serving at smollm-360m's full width, K3 path vs the
     # plain attention path in f32 on the same card
@@ -1599,7 +1828,8 @@ def main(argv=None) -> int:
             + f"  max_abs_err {r['max_abs_err']:.3g}")
     results.update(load=load, serve=serve, logcsr=logcsr, crossover=cross,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
-                   segment_sum_cases=k2_cases, flash_attention=k3,
+                   segment_sum_checks=k2_checks,
+                   segment_sum_plan_limits=k2_limits, flash_attention=k3,
                    flash_attention_cases=k3_cases,
                    flash_attention_build=k3_build, lm_check=lm_check,
                    lm_serve=lm, lm_shadow=shadow,
@@ -1628,9 +1858,21 @@ def main(argv=None) -> int:
         "bound_ms": k2["layer0"]["bound_ms"],
         "bound_by": k2["layer0"]["bound_by"],
         "library_ms": k2["layer0"]["library_ms"],
+        "library_call": "zeros(N,D).index_add_",
         "shape": (f"f32[{k2['layer0']['e']},{k2['layer0']['d']}] by "
                   f"int32[{k2['layer0']['e']}] -> "
                   f"f32[{k2['layer0']['n']},{k2['layer0']['d']}] (layer 0)"),
+        "design": k2["layer0"]["design"],
+        "rows_deterministic": det["rows_equal_across_calls"],
+        "rows_equal_cpu_plain": det["rows_equal_cpu_plain"],
+        "designs": {label: {"plan": r["design"], **{
+            m: {key: v[key] for key in (
+                "ms", "k2_launches_per_call", "cuda_launches_per_call",
+                "kernel_device_ms", "max_abs_err")}
+            for m, v in r["designs"].items()},
+            **{key: r[key] for key in ("plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}}
+            for label, r in k2.items()},
     }, {
         "name": "flash_attention", "route": "cuda", "source": K3_CUDA_SOURCE,
         "replaces": K3_TPU_KERNEL, "launches": lm_k3,

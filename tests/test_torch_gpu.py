@@ -5,8 +5,13 @@ machine with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py`` (the first test of each kernel builds it with
 nvcc).  Integer results: tolerance ZERO (``torch.equal``); the segment
 sum: f32 rtol 1e-5 / atol 1e-4, bf16 inputs 2e-2 / 2e-1 (atomics add in
-no fixed order); flash attention: f32 2e-4, bf16 2e-2 (rtol and atol, the
-JAX package's own kernel tolerances)."""
+no fixed order; the rows design on sorted ids is held bit for bit to
+itself and to the CPU plain version); flash attention: f32 2e-4, bf16
+2e-2 (rtol and atol, the JAX package's own kernel tolerances)."""
+
+import importlib.util
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +26,8 @@ from repro_torch.kernels.flash_attention import (attention_bshd,
                                                  attention_ref,
                                                  flash_attention, plan)
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
+from repro_torch.kernels.segment_sum import plan as k2_plan
+from repro_torch.kernels.segment_sum.ops import _segment_sum_design
 from repro_torch.query import NeighborQueryEngine
 
 pytestmark = pytest.mark.gpu
@@ -91,6 +98,95 @@ def test_segment_sum_kernel_equals_plain_version(cuda, E, D, N, dtype):
     assert not segment_sum(msgs[:0], ids[:0], N).any()
     with pytest.raises(RuntimeError, match="no backward"):
         segment_sum(msgs.detach().float().requires_grad_(), ids, N)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """``chip_smoke.py``, for its K2 id layouts."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    path_before = list(sys.path)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = path_before
+    return mod
+
+
+K2_LAYOUTS = ["served", "sorted", "permuted", "all_invalid", "one_segment",
+              "ids_ge_n", "many_segments", "no_edges", "wide"]
+
+
+@pytest.mark.parametrize("kind", K2_LAYOUTS)
+@pytest.mark.parametrize("design", ["atomic", "rows", "public"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_designs_on_every_layout(cuda, smoke, kind, design,
+                                             dtype):
+    """Each design forced through the private entry, and the public path
+    (the design ``plan`` picks), against the plain version on the card,
+    on ``chip_smoke.k2_layout``'s layouts: f32 rtol 1e-5 / atol 1e-4,
+    bf16 inputs 2e-2 / 2e-1, bit for bit on the exact layout; one count
+    of ``segment_sum.launches`` per call with work; int64 ids of 2^31 and
+    more dropped, never wrapped."""
+    assert tuple(K2_LAYOUTS) == smoke.K2_LAYOUTS
+    rng = np.random.default_rng(K2_LAYOUTS.index(kind))
+    ids_np, n, d, exact = smoke.k2_layout(kind, rng)
+    a = (rng.integers(-8, 9, (ids_np.size, d)) if exact
+         else rng.standard_normal((ids_np.size, d))).astype(np.float32)
+    msgs = torch.from_numpy(a).to(cuda, dtype)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    before = segment_sum.launches
+    if design == "public":
+        design = k2_plan(ids.numel(), d, n)
+        out = segment_sum(msgs, ids, n)
+    else:
+        out = _segment_sum_design(msgs, ids, n, design)
+    torch.cuda.synchronize()
+    work = n * d if design == "rows" else ids.numel() * d * n
+    assert segment_sum.launches == before + int(work > 0)
+    want = segment_sum_ref(msgs, ids, n)
+    assert out.dtype == torch.float32 and out.shape == (n, d)
+    if exact:
+        assert torch.equal(out, want)
+    else:
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(out, want, rtol=tol, atol=tol * 10)
+    if kind == "wide":         # the same sums as with the wide ids at -1
+        minus = torch.where((ids >= 0) & (ids < n), ids, -1).int()
+        torch.testing.assert_close(
+            out, _segment_sum_design(msgs, minus, n, design),
+            rtol=1e-5, atol=1e-4)
+
+
+def test_segment_sum_rows_is_deterministic_and_equals_the_cpu(cuda, smoke):
+    ids_np, n = smoke.served_tree_ids(1024, seed=3)
+    msgs = torch.randn(ids_np.size, 1433, device=cuda)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    first = _segment_sum_design(msgs, ids, n, "rows")
+    second = _segment_sum_design(msgs, ids, n, "rows")
+    assert torch.equal(first, second)
+    assert torch.equal(first.cpu(), segment_sum_ref(msgs.cpu(), ids.cpu(), n))
+
+
+@pytest.mark.parametrize("design", ["atomic", "rows"])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_segment_sum_makes_no_host_sync(cuda, smoke, design, ids_dtype):
+    ids_np, n = smoke.served_tree_ids(64, seed=4)
+    msgs = torch.randn(ids_np.size, 600, device=cuda)
+    ids = torch.from_numpy(ids_np).to(cuda, ids_dtype)
+    _segment_sum_design(msgs, ids, n, design)          # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _segment_sum_design(msgs, ids, n, design)
+        if design == k2_plan(ids.numel(), 600, n):
+            segment_sum(msgs, ids, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(out, segment_sum_ref(msgs, ids, n),
+                               rtol=1e-5, atol=1e-4)
 
 
 def test_gcn_serving_goes_through_both_kernels(cuda, tmp_path):

@@ -99,3 +99,131 @@ def test_bad_arguments_raise():
         segment_sum(m, torch.zeros(4), 3)
     with pytest.raises(ValueError, match="num_segments"):
         segment_sum(m, torch.zeros(4, dtype=torch.int32), -1)
+
+
+# --- int64 ids too wide for int32, the two CUDA designs' plan, layouts ---
+
+from repro_torch.kernels.segment_sum import plan  # noqa: E402
+from repro_torch.kernels.segment_sum.ops import (  # noqa: E402
+    ROWS_MAX_EDGES, ROWS_MIN_WIDTH, _segment_sum_design)
+
+WIDE = [2 ** 32, 2 ** 32 + 5, -2 ** 32 + 3, 2 ** 31]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_wide_int64_ids_are_dropped_as_the_contract_says(dtype):
+    """Ids outside [0, N) are dropped, int64 ones too wide for int32
+    included (a cast to int32 would wrap 2^32 into segment 0, 2^32+5
+    into 5).  The JAX op narrows its ids to int32 itself (``astype`` in
+    its Pallas arm, XLA's scatter on the CPU), so it is given the ids the
+    contract makes of these: -1."""
+    n = 9
+    rng = np.random.default_rng(16)
+    ids = np.sort(rng.integers(-1, n, 200))
+    at = rng.choice(200, 2 * len(WIDE) + 2, replace=False)
+    ids[at] = WIDE * 2 + [n, n]                 # N itself is dropped too
+    msgs = rng.standard_normal((200, 5)).astype(np.float32)
+    tmsgs = torch.from_numpy(msgs)
+    jmsgs = jnp.asarray(msgs)
+    if dtype == "bf16":
+        tmsgs, jmsgs = tmsgs.to(torch.bfloat16), jmsgs.astype(jnp.bfloat16)
+    got = segment_sum(tmsgs, torch.from_numpy(ids), n)
+    dropped = np.where((ids >= 0) & (ids < n), ids, -1).astype(np.int32)
+    want = np.asarray(ref_segment_sum(jmsgs, jnp.asarray(dropped), n,
+                                      interpret=True))
+    _close(got, want, dtype)
+    # and exactly what the same ids give with the wide ones written as -1
+    assert torch.equal(got, segment_sum(tmsgs, torch.from_numpy(dropped), n))
+    wrapped = torch.from_numpy(ids).to(torch.int32)      # what was fixed
+    assert not torch.equal(got, segment_sum(tmsgs, wrapped, n))
+
+
+def _tree_dst(n_seeds, fanouts, rng, p_valid=0.7):
+    """edge_dst of a padded tree block as the GCN server builds it."""
+    from types import SimpleNamespace
+    from repro_torch.launch.data_gnn import block_to_edges
+    valid = [np.ones(n_seeds, bool)]
+    for f in fanouts:
+        valid.append(np.repeat(valid[-1], f)
+                     & (rng.random(valid[-1].size * f) < p_valid))
+    block = SimpleNamespace(layer_nodes=[np.zeros(v.size) for v in valid],
+                            layer_valid=valid, fanouts=fanouts)
+    _, dst, n = block_to_edges(block)
+    return dst.astype(np.int32), n
+
+
+def _layout(kind, rng):
+    if kind == "served":
+        return _tree_dst(16, (5, 5), rng)
+    if kind == "sorted":
+        return np.sort(rng.integers(0, 300, 900)).astype(np.int32), 300
+    if kind == "permuted":
+        return rng.permutation(np.sort(rng.integers(0, 300, 900))
+                               ).astype(np.int32), 300
+    if kind == "all_invalid":
+        return rng.choice(np.array([-1, 40, 47], np.int32), 500), 40
+    if kind == "one_segment":
+        return np.full(700, 3, np.int32), 10
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["served", "sorted", "permuted",
+                                  "all_invalid", "one_segment"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_layouts_match_jax(kind, dtype):
+    """The id layouts the CUDA designs are held to on the card, here
+    through the plain version against the JAX op (Pallas, interpret)."""
+    rng = np.random.default_rng(7)
+    ids, n = _layout(kind, rng)
+    msgs = rng.standard_normal((ids.size, 19)).astype(np.float32)
+    tmsgs, jmsgs = torch.from_numpy(msgs), jnp.asarray(msgs)
+    if dtype == "bf16":
+        tmsgs, jmsgs = tmsgs.to(torch.bfloat16), jmsgs.astype(jnp.bfloat16)
+    want = np.asarray(ref_segment_sum(jmsgs, jnp.asarray(ids), n,
+                                      interpret=True))
+    _close(segment_sum(tmsgs, torch.from_numpy(ids), n), want, dtype)
+
+
+def test_plain_version_sums_each_row_in_edge_order_from_zero():
+    """The sum the rows design takes on the card (each row from +0.0,
+    its edges in order, in f32) is what the CPU plain version gives, bit
+    for bit: so the two can be held to each other with torch.equal."""
+    rng = np.random.default_rng(11)
+    ids, n = _tree_dst(32, (5, 5), rng)
+    msgs = rng.standard_normal((ids.size, 23)).astype(np.float32)
+    want = np.zeros((n, 23), np.float32)
+    for e in range(ids.size):
+        if ids[e] >= 0:
+            want[ids[e]] = want[ids[e]] + msgs[e]       # f32 adds in order
+    got = segment_sum(torch.from_numpy(msgs), torch.from_numpy(ids), n)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("design", ["atomic", "rows"])
+def test_design_entry_on_cpu_is_the_plain_version(design):
+    rng = np.random.default_rng(5)
+    msgs = torch.from_numpy(rng.standard_normal((300, 8)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-1, 40, 300))
+    before = segment_sum.launches
+    got = _segment_sum_design(msgs, ids, 40, design)
+    assert segment_sum.launches == before
+    assert torch.equal(got, segment_sum_ref(msgs, ids, 40))
+
+
+def test_design_entry_refuses_an_unknown_design():
+    with pytest.raises(ValueError, match="design must be one of"):
+        _segment_sum_design(torch.zeros(2, 2), torch.zeros(2,
+                            dtype=torch.int32), 2, "sorted")
+
+
+@pytest.mark.parametrize("e,d,n,want", [
+    (30720, 1433, 31744, "rows"),       # served layer 0 (Cora's width)
+    (30720, 16, 31744, "atomic"),       # served layer 1 (d_hidden)
+    (30720, 1, 31744, "atomic"),        # served degree
+    (ROWS_MAX_EDGES, ROWS_MIN_WIDTH, 10, "rows"),
+    (ROWS_MAX_EDGES + 1, ROWS_MIN_WIDTH, 10, "atomic"),
+    (ROWS_MAX_EDGES, ROWS_MIN_WIDTH - 1, 10, "atomic"),
+    (0, ROWS_MIN_WIDTH, 10, "rows"),
+])
+def test_plan_at_the_served_shapes_and_its_limits(e, d, n, want):
+    assert plan(e, d, n) == want

@@ -139,6 +139,96 @@ def test_segment_sum_bound(smoke):
     assert smoke.k2_bound_ms(30720, 1, 31744, 0)[1] == "bytes"
 
 
+def test_segment_sum_checks_on_cpu(smoke):
+    out = smoke.phase_segment_sum_checks("cpu", n_seeds=64)
+    # (6 sweep shapes x 2 id ranges + 9 layouts) x f32/bf16 x (atomic,
+    # rows, the public path), then 3 empty shapes x 2 designs
+    assert out["cases"] == (6 * 2 + len(smoke.K2_LAYOUTS)) * 2 * 3 + 6 \
+        == 132
+    det = out["determinism"]
+    assert det["rows_equal_across_calls"] and det["rows_equal_cpu_plain"]
+    assert (det["e"], det["n"], det["d"]) == (64 * 30, 64 * 31, 1433)
+
+
+def test_served_tree_ids_have_the_served_layout(smoke):
+    ids, n = smoke.served_tree_ids(1024)
+    assert ids.dtype == np.int32 and (ids.size, n) == (30720, 31744)
+    valid = ids[ids >= 0]
+    assert np.all(np.diff(valid) >= 0)                 # ascending
+    assert 0.45 < valid.size / ids.size < 0.6          # ~53 % valid
+    assert valid.max() < 1024 + 5120                   # leaves get nothing
+    runs = np.bincount(valid)
+    assert runs.max() == 5                             # runs of the fanout
+
+
+def _perturb_second_rows_call(smoke, monkeypatch):
+    real, calls = smoke._segment_sum_design, []
+
+    def fake(msgs, ids, n, design):
+        out = real(msgs, ids, n, design)
+        calls.append(design)
+        if len(calls) == 2:                   # one ulp off, one element
+            out[0, 0] = torch.nextafter(out[0, 0], torch.tensor(np.inf))
+        return out
+    monkeypatch.setattr(smoke, "_segment_sum_design", fake)
+
+
+def test_k2_determinism_check_detects_a_changed_bit(smoke, monkeypatch):
+    assert smoke.check_k2_determinism("cpu", n_seeds=32)[
+        "rows_equal_across_calls"]
+    _perturb_second_rows_call(smoke, monkeypatch)
+    with pytest.raises(AssertionError, match="not bit-identical"):
+        smoke.check_k2_determinism("cpu", n_seeds=32)
+
+
+def _plain(msgs, ids, n):
+    from repro_torch.kernels.segment_sum import segment_sum_ref
+    return segment_sum_ref(msgs, ids, n)
+
+
+def _wrapping_design(msgs, ids, n, design):
+    """The fault the wide-id repair removed: ids narrowed to int32."""
+    return _plain(msgs, ids.to(torch.int32), n)
+
+
+def _dropping_design(msgs, ids, n, design):
+    """One valid edge lost."""
+    ids = ids.clone()
+    valid = torch.nonzero((ids >= 0) & (ids < n))
+    if valid.numel():
+        ids[valid[-1, 0]] = -1
+    return _plain(msgs, ids, n)
+
+
+def _ulp_design(msgs, ids, n, design):
+    """Sums one ulp off where the layout is exact."""
+    out = _plain(msgs, ids, n)
+    if out.numel():
+        out[0, 0] = torch.nextafter(out[0, 0], torch.tensor(np.inf))
+    return out
+
+
+@pytest.mark.parametrize("fault,match", [
+    (_wrapping_design, "atomic on wide"),
+    (_dropping_design, "atomic on sweep E=64 D=16 N=4"),
+    (_ulp_design, r"atomic on one_segment .*\(exact layout\)"),
+])
+def test_k2_layout_checks_detect_a_planted_fault(smoke, monkeypatch, fault,
+                                                 match):
+    monkeypatch.setattr(smoke, "_segment_sum_design", fault)
+    with pytest.raises(AssertionError, match=match):
+        smoke.phase_segment_sum_checks("cpu", n_seeds=32)
+
+
+def test_k2_plan_check_detects_a_slower_pick(smoke):
+    timed = {"layer0": {"design": "rows", "designs": {
+        "atomic": {"ms": 0.24}, "rows": {"ms": 0.13}}}}
+    smoke.check_k2_plan_picks_the_faster(timed)
+    timed["layer0"]["design"] = "atomic"
+    with pytest.raises(AssertionError, match="plan picks atomic at layer0"):
+        smoke.check_k2_plan_picks_the_faster(timed)
+
+
 def test_lm_phases_on_cpu(smoke):
     """The LM phases at the reduced smollm-360m config: on the CPU the
     K3 path and the plain path are one code, so the logits agree exactly
