@@ -14,7 +14,10 @@ designs -- tensor-core prefill, split decode, f32 FMA -- to the JAX
 package's kernel tolerances),
 drives the port's main paths through the library entry points -- load
 a CompBin graph into HBM through PG-Fuse, answer batches of neighbor
-queries from the same file, serve GCN inference requests at gcn-cora's
+queries from the same file, replay a hub-heavy trace through a cold
+engine and one with the device-resident hot-set tier, serve k-hop / BFS /
+shortest-path traversals on one engine and on 2 shards x 2 replicas
+(answers held to a plain numpy traversal), serve GCN inference requests at gcn-cora's
 full width (sample through the query engine, gather feature rows from
 the feature store, one transfer, forward pass with the segment-sum
 kernel), and serve
@@ -30,8 +33,8 @@ object ``{"kernels": [...]}``; the last is
 Any failed phase raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device it exits with code 2 at once.
 
-The load/serve/LogCSR/GNN phases are plain functions of ``device`` and
-``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
+The load/serve/LogCSR/hot-set/traversal/GNN phases are plain functions
+of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
 n_tokens)``, so the CPU tests run the same code at a small size.
 """
 
@@ -99,6 +102,15 @@ K3_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 #: f32 LM logits of the K3 path against the plain path on the card
 #: (rtol and atol): the same weights and prompts, sums in another order
 LM_TOL = 1e-3
+#: hot-set budget of each engine in the sharded traversal run (bytes as
+#: ``HotSetStats`` charges them, 8 an edge)
+TRAVERSAL_HOTSET = 64 << 20
+#: traversal requests sent one at a time, by kind, per topology: a path
+#: request on the scale-23 file takes ~6-7 s, so it gets fewer
+TRAVERSAL_SEQUENTIAL = {"khop": 30, "bfs": 30, "path": 8}
+#: fewest latencies of a kind whose nearest-rank p99 is reported; below
+#: it only p50 and the largest are
+P99_MIN_N = 30
 #: tokens of the served-dtype run whose every attention call is held to
 #: f64 (1 prefill + 3 decode steps: both of K3's bf16 designs)
 LM_SHADOW_TOKENS = 4
@@ -111,6 +123,26 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # phases 4-6: the main path, as functions of (device, scale)
 # ---------------------------------------------------------------------------
+
+def _cuda_sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _quantiles(lat: list) -> tuple[float, float]:
+    """(p50, p99) of a list of latencies, nearest rank."""
+    s = sorted(lat)
+    return s[len(s) // 2], s[min(len(s) - 1, int(0.99 * len(s)))]
+
+
+def _mean_tiers(roots: list) -> dict:
+    """Exclusive seconds per tier, averaged over the traced roots."""
+    tiers: dict = {}
+    for root in roots:
+        for tier, sec in tier_times(root).items():
+            tiers[tier] = tiers.get(tier, 0.0) + sec / max(1, len(roots))
+    return tiers
+
 
 def make_graph(scale: int, workdir: str, fmt: str = "compbin",
                edge_factor: int = 16, seed: int = 0):
@@ -247,23 +279,18 @@ def phase_serve(csr, path: str, device, *, n_batches: int = 32,
         for _ in range(n_traced):
             vs = rng.integers(0, g.n_vertices, batch)
             checked += _check_answers(csr, vs, eng.neighbors_batch(vs))
-    tiers: dict = {}
-    for root in tracer.drain():
-        for tier, sec in tier_times(root).items():
-            tiers[tier] = tiers.get(tier, 0.0) + sec / max(1, n_traced)
+    tiers = _mean_tiers(tracer.drain())
     launched = compbin_decode.launches - launches0
     assert launched == (launched_device + want_device + n_traced
                         if on_gpu else 0)
-    lat_sorted = sorted(lat)
+    p50, p99 = _quantiles(lat)
     return {"batches": qs["batches"], "device_batches": qs["device_batches"],
             "requests": qs["requests"], "edges_returned": qs["edges_returned"],
             "bytes_h2d": qs["bytes_h2d"], "close_reasons": qs["close_reasons"],
             "auto_device_batches": auto["device_batches"],
             "auto_batches": auto["batches"], "ids_checked": checked,
             "tier_s_per_traced_batch": tiers,
-            "p50_s": lat_sorted[len(lat) // 2],
-            "p99_s": lat_sorted[min(len(lat) - 1, int(0.99 * len(lat)))],
-            "launches": launched}
+            "p50_s": p50, "p99_s": p99, "launches": launched}
 
 
 def phase_logcsr(device, scale: int, workdir: str, *, n_batches: int = 8,
@@ -275,6 +302,303 @@ def phase_logcsr(device, scale: int, workdir: str, *, n_batches: int = 8,
     serve = phase_serve(csr, path, device, n_batches=n_batches, batch=batch,
                         n_async=2, n_auto=2, seed=4)
     return {"load": load, "serve": serve}
+
+
+def hotset_trace(degrees: np.ndarray, n_batches: int, batch: int, *,
+                 hot_fraction: float = 0.6, seed: int = 0):
+    """Degree-correlated zipf traffic, built as ``benchmarks/hotset.py``
+    builds it: ``hot_fraction`` of the lookups hit the top-degree hubs
+    (``max(16, n >> 10)`` of them), the rest are uniform.  Returns (list
+    of int64 batches, hub ids)."""
+    n = degrees.shape[0]
+    hubs = np.argsort(degrees)[::-1][:max(16, n >> 10)].astype(np.int64)
+    rng = np.random.default_rng(seed)
+    trace = []
+    for _ in range(n_batches):
+        hot = hubs[rng.integers(0, len(hubs), batch)]
+        cold = rng.integers(0, n, batch)
+        trace.append(np.where(rng.random(batch) < hot_fraction, hot, cold))
+    return trace, hubs
+
+
+def phase_hotset(csr, path: str, device, *, n_batches: int = 48,
+                 batch: int = 1024, seed: int = 0) -> dict:
+    """One seeded hub-heavy trace through a cold engine and through one
+    with the device-resident hot-set tier (budget ``max(64 KiB, 1.5 x``
+    the hub runs' bytes), as ``benchmarks/hotset.py`` sizes it), both with
+    ``decode="auto"`` over the random-access mount of ``phase_serve``.
+    Every answer of both arms is held to ``csr`` bit for bit as int64;
+    K1's launch delta of each arm must equal its device batches.  Reports
+    per-batch p50/p99 (host clock), hit rate, launches, ``HotSetStats``
+    and the bytes the tier holds on the card (``memory_allocated`` after
+    the trace less before it)."""
+    from repro_torch.query import BYTES_PER_EDGE
+
+    on_gpu = torch.device(device).type == "cuda"
+    amode = policy.choose_access_mode("serve")
+    degrees = np.diff(csr.offsets)
+    trace, hubs = hotset_trace(degrees, n_batches, batch, seed=seed)
+    hub_bytes = int(degrees[hubs].sum()) * BYTES_PER_EDGE
+    budget = max(1 << 16, int(1.5 * hub_bytes))
+    pg_budget = max(64 * SERVE_BLOCK_SIZE, os.path.getsize(path) // 2)
+    out = {"hubs": int(len(hubs)), "hub_edges": int(degrees[hubs].sum()),
+           "budget_bytes": budget, "batches": n_batches, "batch": batch}
+    t_phase = time.perf_counter()
+    for arm, hot in (("cold", None), ("hot", budget)):
+        _cuda_sync(device)
+        mem0 = torch.cuda.memory_allocated(device) if on_gpu else 0
+        launches0 = compbin_decode.launches
+        lat, checked = [], 0
+        tracer = Tracer(sample_every=4)
+        with open_graph(path, use_pgfuse=True,
+                        pgfuse_block_size=SERVE_BLOCK_SIZE,
+                        pgfuse_readahead=amode.readahead,
+                        pgfuse_eviction=amode.eviction,
+                        pgfuse_max_resident_bytes=pg_budget) as g, \
+                NeighborQueryEngine(g, decode="auto", hotset=hot,
+                                    device=device, tracer=tracer) as eng:
+            if hot is not None:
+                assert eng.hotset.plan.place == "device", eng.hotset.plan
+            for vs in trace:
+                t0 = time.perf_counter()
+                ans = eng.neighbors_batch(vs)
+                lat.append(time.perf_counter() - t0)
+                checked += _check_answers(csr, vs, ans)
+            _cuda_sync(device)
+            mem1 = torch.cuda.memory_allocated(device) if on_gpu else 0
+            qs = eng.stats.as_dict()
+            hs = eng.hotset.stats.as_dict() if hot is not None else None
+            if hot is not None:
+                # the resident runs sit where the tier was told to put them
+                first = eng.hotset._entries[int(
+                    eng.hotset.resident_vertices[0])]
+                assert isinstance(first.store, torch.Tensor) and \
+                    first.store.device.type == torch.device(device).type, \
+                    f"resident runs are not on {device}: {type(first.store)}"
+                assert not on_gpu or mem1 > mem0, (mem0, mem1)
+                # after the books are read: what one hit costs (the
+                # device-to-host copy and sync of its run included)
+                ids = eng.hotset.resident_vertices[:1024]
+                t0 = time.perf_counter()
+                eng.hotset.lookup(ids)
+                hit_us = (time.perf_counter() - t0) / max(1, ids.size) * 1e6
+        launched = compbin_decode.launches - launches0
+        assert launched == (qs["device_batches"] if on_gpu else 0), \
+            (arm, launched, qs["device_batches"])
+        p50, p99 = _quantiles(lat)
+        r = out[arm] = {
+            "p50_s": p50, "p99_s": p99, "latency_s": lat,
+            "launches": launched, "device_batches": qs["device_batches"],
+            "batches": qs["batches"], "bytes_h2d": qs["bytes_h2d"],
+            "edges_returned": qs["edges_returned"], "ids_checked": checked,
+            "card_bytes": mem1 - mem0,
+            "tier_s_per_traced_batch": _mean_tiers(tracer.drain())}
+        if hs is not None:
+            assert hs["lookups"] == hs["hits"] + hs["misses"], hs
+            assert hs["fills"] == (hs["admitted"] + hs["bypassed"]
+                                   + hs["rejected"]), hs
+            assert hs["resident_bytes"] <= budget, hs
+            assert hs["hits"] > 0, hs
+            r["hotset"] = hs
+            r["lookup_us_per_hit"] = hit_us
+    out["launches"] = out["cold"]["launches"] + out["hot"]["launches"]
+    out["hot_over_cold_p50"] = out["hot"]["p50_s"] / out["cold"]["p50_s"]
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+
+def plain_traverse(csr, kind: str, seeds, *, k=None, target=None,
+                   max_edges: int, max_vertices=None) -> dict:
+    """An independent plain-numpy traversal on the in-memory CSR with the
+    query service's documented semantics (``repro_torch.query.traversal``
+    module docstring): seeds deduplicated and sorted at depth 0; before
+    each hop stop on found / empty frontier / ``hop == k`` / edges
+    scanned over ``max_edges`` / visit bound; new vertices join in
+    ascending id, trimmed to the visit bound; a path's parent is the
+    smallest-id frontier vertex adjacent to the discovery.  A boolean
+    visit mask and per-hop vectorised gathers, nothing of the service."""
+    off, nbr = csr.offsets, csr.neighbors
+    n = csr.n_vertices
+    seeds = np.unique(np.asarray(seeds, dtype=np.int64))
+    mv = n if max_vertices is None else max_vertices
+    truncated = bool(seeds.size > mv)
+    seeds = seeds[:mv]
+    seen = np.zeros(n, dtype=bool)
+    seen[seeds] = True
+    n_seen = int(seeds.size)
+    order, depths, parent = [seeds], [np.zeros(seeds.size, np.int64)], {}
+    frontier = seeds
+    found = target is not None and bool(seen[target])
+    edges = hops = 0
+    while not (found or frontier.size == 0 or (k is not None and hops == k)):
+        if edges > max_edges or n_seen >= mv:
+            truncated = True
+            break
+        lo, deg = off[frontier], off[frontier + 1] - off[frontier]
+        total = int(deg.sum())
+        idx = (np.arange(total, dtype=np.int64)
+               - np.repeat(np.cumsum(deg) - deg, deg) + np.repeat(lo, deg))
+        dst = nbr[idx].astype(np.int64)
+        hops += 1
+        edges += total
+        new = np.unique(dst[~seen[dst]])
+        if new.size > mv - n_seen:
+            new, truncated = new[:mv - n_seen], True
+        if target is not None and new.size:
+            mark = np.zeros(n, dtype=bool)
+            mark[new] = True
+            hit = mark[dst]
+            d, s = dst[hit], np.repeat(frontier, deg)[hit]
+            o = np.lexsort((s, d))
+            d, s = d[o], s[o]
+            first = np.ones(d.size, dtype=bool)
+            first[1:] = d[1:] != d[:-1]
+            parent.update(zip(d[first].tolist(), s[first].tolist()))
+            found = bool(mark[target])
+        seen[new] = True
+        n_seen += int(new.size)
+        order.append(new)
+        depths.append(np.full(new.size, hops, np.int64))
+        frontier = new
+    path = None
+    if kind == "path" and found:
+        chain = [int(target)]
+        while chain[-1] in parent:
+            chain.append(parent[chain[-1]])
+        path = chain[::-1]
+    return {"vertices": np.concatenate(order), "depths": np.concatenate(depths),
+            "found": found, "path": path, "truncated": truncated,
+            "hops": hops, "edges_scanned": edges}
+
+
+def check_traversal(csr, req, res) -> int:
+    """``res`` equals :func:`plain_traverse` of ``req``: visit set and
+    order, depths, path and its length, hops, edges scanned, truncation.
+    Returns the number of vertices checked."""
+    want = plain_traverse(csr, req.kind, req.seeds, k=req.k,
+                          target=req.target, max_edges=req.max_edges,
+                          max_vertices=req.max_vertices)
+    assert res.vertices.dtype == np.int64, res.vertices.dtype
+    assert np.array_equal(res.vertices, want["vertices"]), \
+        f"{req.kind}: visit set differs"
+    assert np.array_equal(res.depths, want["depths"]), \
+        f"{req.kind}: depths differ"
+    assert res.found == want["found"], f"{req.kind}: found differs"
+    if want["path"] is None:
+        assert res.path is None, f"{req.kind}: path differs"
+    else:
+        assert res.path is not None and len(res.path) == len(want["path"]), \
+            f"{req.kind}: path length differs"
+        assert res.path.tolist() == want["path"], f"{req.kind}: path differs"
+    assert (res.hops, res.edges_scanned, res.truncated) == (
+        want["hops"], want["edges_scanned"], want["truncated"]), \
+        f"{req.kind}: budgets differ"
+    return int(res.vertices.size)
+
+
+def phase_traversal(csr, path: str, device, *, shards: int = 1,
+                    replication: int = 1, hotset_bytes=None,
+                    sequential: dict = None, batch: int = 16,
+                    n_concurrent: int = 9, seed: int = 0) -> dict:
+    """``serve_traversal``'s mix (k-hop k=2, BFS visit bounded at
+    ``4 * batch`` vertices, shortest path; half the seeds hub-biased)
+    through ``make_traversal_server(path=..., device=...)``: first one
+    request at a time, ``sequential[kind]`` of each kind (default
+    :data:`TRAVERSAL_SEQUENTIAL`) in the mix's order, for per-kind
+    host-clock latency (p99 only from :data:`P99_MIN_N` on), then
+    ``n_concurrent``
+    more submitted at once to the service's executor threads, each calling
+    the engine(s) and so launching K1 from several threads (a shed
+    request is counted, not answered).  Every completed answer is held to
+    :func:`plain_traverse`; each kind must complete at least once; K1's
+    launch delta must equal the device batches of every engine, merged
+    across shard replicas."""
+    from repro_torch.launch.serve import make_traversal_server, traversal_mix
+    from repro_torch.query import TraversalShed, merge_query_stats
+
+    on_gpu = torch.device(device).type == "cuda"
+    quota = dict(sequential or TRAVERSAL_SEQUENTIAL)
+    n_requests = sum(quota.values())
+    t_phase = time.perf_counter()
+    launches0 = compbin_decode.launches
+    tracer = Tracer(max_traces=4 * (n_requests + n_concurrent))
+    service, close = make_traversal_server(
+        path=path, device=device, shards=shards, replication=replication,
+        hotset_bytes=hotset_bytes, tracer=tracer)
+    lat = {"khop": [], "bfs": [], "path": []}
+    checked = shed = shed_concurrent = 0
+    found = 0
+    try:
+        n, budget = service.n_vertices, service.default_max_edges
+        for req in traversal_mix(n, 3 * max(quota.values()), batch,
+                                 max_edges=budget, seed=seed):
+            if quota[req.kind] == 0:
+                continue
+            quota[req.kind] -= 1
+            t0 = time.perf_counter()
+            try:
+                res = service.request(req)
+            except TraversalShed:
+                shed += 1
+                continue
+            lat[req.kind].append(time.perf_counter() - t0)
+            checked += check_traversal(csr, req, res)
+            found += bool(res.found)
+        futures = []
+        t0 = time.perf_counter()
+        for req in traversal_mix(n, n_concurrent, batch, max_edges=budget,
+                                 seed=seed + 1):
+            try:
+                futures.append((req, service.submit(req)))
+            except TraversalShed:
+                shed_concurrent += 1
+        for req, fut in futures:
+            checked += check_traversal(csr, req, fut.result(timeout=600))
+        concurrent_s = time.perf_counter() - t0
+        backend = service.engine
+        engines = ([rep.engine for row in backend.replicas for rep in row]
+                   if hasattr(backend, "replicas") else [backend])
+        qs = merge_query_stats(e.stats for e in engines)
+        d = service.as_dict()
+        threads = len(service._executor._threads) if service._executor \
+            else 0
+    finally:
+        close()
+    roots = tracer.drain()
+    launched = compbin_decode.launches - launches0
+    assert launched == (qs.device_batches if on_gpu else 0), \
+        (launched, qs.device_batches)
+    assert all(lat.values()), {k: len(v) for k, v in lat.items()}
+    ts = d["traversal"]
+    assert ts["submitted"] == ts["admitted"] + ts["shed"], ts
+    assert ts["completed"] == n_requests + n_concurrent - shed \
+        - shed_concurrent, ts
+    out = {"shards": shards, "replication": replication,
+           "hotset_bytes": hotset_bytes, "batch": batch,
+           "requests": n_requests + n_concurrent,
+           "completed": ts["completed"], "shed": ts["shed"],
+           "shed_rate": ts["shed_rate"], "p50_s": ts["p50_s"],
+           "p99_s": ts["p99_s"], "frontier_batches": ts["frontier_batches"],
+           "edges_scanned": ts["edges_scanned"],
+           "vertices_checked": checked, "paths_found": found,
+           "device_batches": qs.device_batches, "engine_batches": qs.batches,
+           "launches": launched, "executor_threads": threads,
+           "concurrent_s": concurrent_s, "per_kind": {},
+           "wall_s": time.perf_counter() - t_phase}
+    for kind, xs in lat.items():
+        p50, p99 = _quantiles(xs)
+        out["per_kind"][kind] = {
+            "n": len(xs), "p50_s": p50,
+            "p99_s": p99 if len(xs) >= P99_MIN_N else None,
+            "max_s": max(xs),
+            "tier_s_per_request": _mean_tiers(
+                [r for r in roots if r.attrs.get("kind") == kind])}
+    if "hotset" in d:
+        out["hotset"] = d["hotset"]
+    if hasattr(backend, "router"):
+        out["router"] = backend.router.as_dict()
+    return out
 
 
 def _zipf_requests(n_vertices: int, n_requests: int, batch: int,
@@ -367,12 +691,9 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
     finally:
         close()
     k1, k2 = compbin_decode.launches - k1_0, segment_sum.launches - k2_0
-    tiers: dict = {}
     traces = tracer.drain()
     assert len(traces) == n_requests, len(traces)
-    for root in traces:
-        for tier, sec in tier_times(root).items():
-            tiers[tier] = tiers.get(tier, 0.0) + sec / n_requests
+    tiers = _mean_tiers(traces)
     worst = 0.0
     for got, (want, dst, n_nodes) in zip(
             served, gnn_plain_logits(gp, fp, cfg, params, fanouts, seed,
@@ -388,7 +709,7 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
         assert k1 > 0 and qs["device_batches"] > 0, (k1, qs)
     else:
         assert k1 == 0
-    steady = sorted(lat[1:] or lat)
+    p50, p99 = _quantiles(lat[1:] or lat)
     return {"arch": cfg.name, "d_in": cfg.d_in, "d_hidden": cfg.d_hidden,
             "n_classes": cfg.n_classes, "scale": scale,
             "edge_factor": edge_factor, "vertices": n_vertices,
@@ -398,8 +719,7 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
             "edge_slots_per_request": int(dst.size),
             "valid_edges_last_request": int((dst >= 0).sum()),
             "feature_bytes_per_request": n_nodes * cfg.d_in * 4,
-            "latency_s": lat, "p50_s": steady[len(steady) // 2],
-            "p99_s": steady[min(len(steady) - 1, int(0.99 * len(steady)))],
+            "latency_s": lat, "p50_s": p50, "p99_s": p99,
             "first_request_s": lat[0],
             "tier_s_per_request": tiers, "max_abs_err": worst,
             "k1_launches": k1, "k2_launches": k2,
@@ -1634,6 +1954,75 @@ def main(argv=None) -> int:
                                       + logcsr["serve"]["launches"])
         assert load["launches"] > 0 and serve["launches"] > 0
 
+        # phases 6b-6c: the serving stack above the engine on the same
+        # file -- the hot-set tier, then traversals on one engine and on
+        # 2 shards x 2 replicas with a hot set; K1's count zeroed just
+        # before each run and read just after
+        compbin_decode.launches = 0
+        hot = phase_hotset(csr, path, device)
+        hot_k1 = compbin_decode.launches
+        assert hot_k1 == hot["launches"] > 0, (hot_k1, hot["launches"])
+        hs = hot["hot"]["hotset"]
+        log(f"[hotset] {hot['batches']} batches of {hot['batch']} "
+            f"(60 % on the {hot['hubs']} top-degree hubs, "
+            f"{hot['hub_edges']} hub edges), budget {hot['budget_bytes']} "
+            f"B: cold p50 {hot['cold']['p50_s'] * 1e3:.3f} ms p99 "
+            f"{hot['cold']['p99_s'] * 1e3:.3f} ms, hot p50 "
+            f"{hot['hot']['p50_s'] * 1e3:.3f} ms p99 "
+            f"{hot['hot']['p99_s'] * 1e3:.3f} ms (hot/cold p50 "
+            f"{hot['hot_over_cold_p50']:.3f}); hit rate "
+            f"{hs['hit_rate']:.4f} ({hs['hits']}/{hs['lookups']}), "
+            f"{hs['resident_entries']} resident entries, "
+            f"{hs['resident_bytes']} B charged, {hs['pinned']} pinned, "
+            f"{hot['hot']['card_bytes']} B on the card "
+            f"(memory_allocated), {hot['hot']['lookup_us_per_hit']:.2f} us "
+            f"a hit (lookup of 1024 resident runs); K1 launches cold "
+            f"{hot['cold']['launches']} / hot {hot['hot']['launches']} "
+            f"(= device batches {hot['cold']['device_batches']} / "
+            f"{hot['hot']['device_batches']} of {hot['cold']['batches']}); "
+            f"{hot['cold']['ids_checked'] + hot['hot']['ids_checked']} ids "
+            f"equal the CSR; phase wall {hot['wall_s']:.1f} s")
+        for arm in ("cold", "hot"):
+            log(f"[hotset] {arm} exclusive ms per traced batch by tier: "
+                + ", ".join(f"{t} {sec * 1e3:.3f}" for t, sec in sorted(
+                    hot[arm]["tier_s_per_traced_batch"].items())))
+        trav, trav_k1 = {}, 0
+        for label, kw in (("one_engine", {}),
+                          ("sharded", dict(shards=2, replication=2,
+                                           hotset_bytes=TRAVERSAL_HOTSET))):
+            compbin_decode.launches = 0
+            r = trav[label] = phase_traversal(csr, path, device, **kw)
+            assert compbin_decode.launches == r["launches"] > 0, \
+                (compbin_decode.launches, r["launches"])
+            trav_k1 += r["launches"]
+            log(f"[traversal] {label} ({r['shards']} shard(s) x "
+                f"{r['replication']} replica(s), hot set "
+                f"{r['hotset_bytes']} B per engine): {r['completed']}/"
+                f"{r['requests']} completed, shed {r['shed']} (rate "
+                f"{r['shed_rate']:.4f}); per kind one at a time (ms): "
+                + ", ".join(
+                    f"{k} n={v['n']} p50 {v['p50_s'] * 1e3:.3f}"
+                    + (f" p99 {v['p99_s'] * 1e3:.3f}"
+                       if v["p99_s"] is not None else "")
+                    + f" max {v['max_s'] * 1e3:.3f}"
+                    for k, v in r["per_kind"].items())
+                + f"; service p50 {r['p50_s'] * 1e3:.3f} ms p99 "
+                f"{r['p99_s'] * 1e3:.3f} ms; {r['frontier_batches']} "
+                f"frontier batches, {r['edges_scanned']} edges scanned, "
+                f"{r['paths_found']} paths found; K1 launches "
+                f"{r['launches']} = device batches {r['device_batches']} "
+                f"of {r['engine_batches']}; {r['executor_threads']} "
+                f"executor threads; {r['vertices_checked']} visited "
+                f"vertices equal the plain numpy traversal"
+                + (f"; hot set hit rate {r['hotset']['hit_rate']:.4f}"
+                   if "hotset" in r else "")
+                + f"; phase wall {r['wall_s']:.1f} s")
+            for kind, v in r["per_kind"].items():
+                log(f"[traversal] {label} {kind}: exclusive ms per request "
+                    f"by tier: " + ", ".join(
+                        f"{t} {sec * 1e3:.3f}" for t, sec in
+                        sorted(v["tier_s_per_request"].items())))
+
         # phase 7: host vs device crossover, and the copy it rides on
         cross = phase_crossover(path, device)
         h2d = phase_h2d()
@@ -1826,7 +2215,8 @@ def main(argv=None) -> int:
             + "  ".join(f"{name} {t:.4f} ms"
                         for name, t in r["library"].items())
             + f"  max_abs_err {r['max_abs_err']:.3g}")
-    results.update(load=load, serve=serve, logcsr=logcsr, crossover=cross,
+    results.update(load=load, serve=serve, logcsr=logcsr, hotset=hot,
+                   traversal=trav, crossover=cross,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
                    segment_sum_checks=k2_checks,
                    segment_sum_plan_limits=k2_limits, flash_attention=k3,
@@ -1845,7 +2235,8 @@ def main(argv=None) -> int:
 
     kernels = [{
         "name": "compbin_decode", "route": "cuda", "source": CUDA_SOURCE,
-        "replaces": TPU_KERNEL, "launches": main_path_launches + gnn_k1,
+        "replaces": TPU_KERNEL,
+        "launches": main_path_launches + hot_k1 + trav_k1 + gnn_k1,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],

@@ -1,6 +1,8 @@
 """Serving entry point of the port, on the GPU: batched LM decode
-(prefill + greedy decode against a KV cache) and online GNN inference
-over the random-access graph query engine.
+(prefill + greedy decode against a KV cache), online GNN inference over
+the random-access graph query engine, and multi-hop graph traversals
+(k-hop / BFS visit / shortest path) over the same engine, optionally
+sharded and with the device-resident hot-set tier.
 
     python -m repro_torch.launch.serve --arch smollm-360m --reduced --tokens 32
     python -m repro_torch.launch.serve --arch smollm-360m --batch 8 \\
@@ -8,12 +10,13 @@ over the random-access graph query engine.
     python -m repro_torch.launch.serve --arch gcn-cora --reduced --requests 8
     python -m repro_torch.launch.serve --arch gcn-cora --requests 8 \\
         --batch 1024 --scale 18 --edge-factor 16 --trace-sample 4
+    python -m repro_torch.launch.serve --arch gcn-cora --reduced \\
+        --traversal --requests 32 --batch 8 --shards 2 --replication 2 \\
+        --hotset-bytes 1048576
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions).  The
-JAX package's traversal and sharded serving (``--traversal``,
-``--shards``, ``--replication``), its hot-set tier (``--hotset-bytes``),
-its MoE LMs and its DIN serving are not ported yet: asking for them
-exits with a message saying so.
+JAX package's MoE LMs and its DIN serving are not ported yet: asking for
+them exits with a message saying so.
 """
 
 from __future__ import annotations
@@ -195,8 +198,12 @@ def make_gnn_server(arch_id: str, cfg, workdir: str, *,
     ``tracer``, each request is a ``gnn.request`` span whose children
     split its time into the tiers ``sample`` (with the engine's own
     spans below it), ``features``, ``h2d`` and ``compute``.
-    ``hotset_bytes`` raises ``NotImplementedError``: the hot-set tier is
-    not ported yet.
+
+    ``hotset_bytes`` adds the device-resident hot-set tier
+    (:class:`repro_torch.query.HotSetCache`, sized by
+    :func:`repro_torch.core.policy.choose_hotset_admission`, its runs on
+    ``device``): hub neighborhoods are answered from resident decoded
+    runs and skip the packed-byte path entirely, byte-identically.
     """
     from repro_torch.core import featstore, paragrapher, policy
     from repro_torch.graph import NeighborSampler
@@ -324,13 +331,209 @@ def serve_gnn(arch_id: str, cfg, *, batch: int, n_requests: int,
                  st.dedup_ratio, st.blocks_touched, st.coalesced_reads, hit,
                  st.device_batches, st.batches, st.bytes_h2d / 1024,
                  st.close_reasons)
+        if engine.hotset is not None:
+            _log_hotset(engine.hotset.stats.as_dict())
         if metrics_json or tracer is not None:
             from repro_torch.obs.metrics import MetricsRegistry
             reg = MetricsRegistry()
             reg.register_stats("query", st.as_dict())
             if pg is not None:
                 reg.register_stats("pgfuse", pg.as_dict())
+            if engine.hotset is not None:
+                reg.register_stats("hotset", engine.hotset.stats.as_dict())
             _emit_metrics(reg, tracer, metrics_json)
+    finally:
+        close()
+
+
+def _log_hotset(hs: dict) -> None:
+    log.info("hot set: hit rate %.2f (%d/%d lookups), "
+             "%d resident entries (%.1f KiB), %d pinned",
+             hs["hit_rate"], hs["hits"], hs["lookups"],
+             hs["resident_entries"], hs["resident_bytes"] / 1024,
+             hs["pinned"])
+
+
+def make_traversal_server(workdir: str = None, *, decode: str = "auto",
+                          slo_s: float = 0.5,
+                          edge_budget: int = 1 << 16,
+                          service_edges_per_s: float = 5.0e6,
+                          servers: int = 2, seed: int = 1,
+                          shards: int = 1, replication: int = 1,
+                          hotset_bytes: int = None,
+                          tracer=None, device=None, path: str = None):
+    """The traversal request type next to GNN inference: a
+    :class:`repro_torch.query.TraversalService` over the SAME CompBin
+    bytes (and the same random-access PG-Fuse policy) the inference server
+    reads.  Returns ``(service, close)``; answer requests with
+    ``service.khop(...)`` / ``service.bfs_visit(...)`` /
+    ``service.shortest_path(...)``, ``service.request(req)`` or
+    ``service.submit(req)`` (executor threads, each calling the engine).
+
+    The admission gate is sized by
+    :func:`repro_torch.core.policy.choose_admission` from the latency SLO
+    and the per-request edge budget — overload sheds immediately
+    (:class:`repro_torch.query.TraversalShed`) instead of queueing into
+    SLO violations.
+
+    ``shards > 1`` (or ``replication > 1``) scales out: the frontier
+    backend becomes a :class:`repro_torch.query.ShardedQueryService` with
+    ``shards`` vertex-range shards x ``replication`` replicas, each with
+    its own engine and PG-Fuse mount (all on the one card), and the
+    admission gate is re-sized for the scaled aggregate service rate
+    (``service_edges_per_s * shards`` across ``servers * shards``
+    executors).  Traversal answers stay byte-identical to ``shards=1``.
+    ``hotset_bytes`` gives each engine (the single backend, or every shard
+    replica) a hot-set tier of that byte budget.
+
+    Keywords the JAX package lacks: ``device`` (None = the GPU, raises
+    without one; every engine and hot set of the server runs there) and
+    ``path`` (serve this existing CompBin file; ``workdir`` is then
+    unused — the JAX package always serves ``ensure_gnn_assets``'
+    ``rmat(10, 8)`` in ``workdir``).
+    """
+    from repro_torch.core import paragrapher, policy
+    from repro_torch.kernels.utils import resolve_device
+    from repro_torch.launch.data_gnn import ensure_gnn_assets
+    from repro_torch.query import (NeighborQueryEngine, ShardedQueryService,
+                                   TraversalService)
+
+    device = resolve_device(device)
+    block_size = 1 << 16
+    if path is not None:
+        gp = path
+    else:
+        gp, _, _ = ensure_gnn_assets(workdir, 16, 7, block_size=block_size,
+                                     seed=seed)
+    amode = policy.choose_access_mode("serve")
+    g = engine = None
+    if shards > 1 or replication > 1:
+        # each shard replica mounts its own cache slice of the same
+        # budget one mount would have had (the locality the split buys)
+        backend = ShardedQueryService(
+            gp, n_shards=shards, replication=replication, decode=decode,
+            hotset_bytes=hotset_bytes, tracer=tracer,
+            open_kwargs=dict(
+                pgfuse_block_size=block_size,
+                pgfuse_max_resident_bytes=max(
+                    block_size, 256 * block_size // max(1, shards))),
+            engine_kwargs=dict(device=device))
+        plan = policy.choose_admission(
+            slo_s, edge_budget=edge_budget,
+            service_edges_per_s=service_edges_per_s * shards,
+            servers=servers * shards)
+    else:
+        g = paragrapher.open_graph(
+            gp, use_pgfuse=True, pgfuse_block_size=block_size,
+            pgfuse_readahead=amode.readahead, pgfuse_eviction=amode.eviction,
+            pgfuse_max_resident_bytes=256 * block_size)
+        try:
+            engine = NeighborQueryEngine(g, decode=decode,
+                                         hotset=hotset_bytes, tracer=tracer,
+                                         device=device)
+        except BaseException:
+            g.close()
+            raise
+        backend = engine
+        plan = policy.choose_admission(
+            slo_s, edge_budget=edge_budget,
+            service_edges_per_s=service_edges_per_s, servers=servers)
+    service = TraversalService(backend, admission=plan,
+                               default_max_edges=edge_budget,
+                               tracer=tracer)
+
+    def close() -> None:
+        service.close()
+        if engine is not None:
+            engine.close()
+            g.close()
+        else:
+            backend.close()
+
+    return service, close
+
+
+def traversal_mix(n_vertices: int, n_requests: int, batch: int, *,
+                  max_edges: int, seed: int = 0):
+    """The synthetic traversal traffic :func:`serve_traversal` sends, as
+    a generator of :class:`repro_torch.query.TraversalRequest`: request
+    ``i`` draws ``batch`` seeds, half of them from the low-id hub range
+    ``[0, n/16)``, and asks ``khop(seeds, k=2)`` (``i % 3 == 0``),
+    ``bfs_visit(seeds[:1], max_vertices=4*batch)`` (``1``) or
+    ``shortest_path(seeds[0], seeds[1])`` (``2``), each under
+    ``max_edges`` — the JAX package's mix, draw for draw."""
+    from repro_torch.query import TraversalRequest
+
+    rng = np.random.default_rng(seed)
+    for i in range(n_requests):
+        hot = rng.integers(0, max(1, n_vertices // 16), batch)
+        cold = rng.integers(0, n_vertices, batch)
+        seeds = np.where(rng.random(batch) < 0.5, hot, cold)
+        if i % 3 == 0:
+            yield TraversalRequest("khop", seeds, k=2, max_edges=max_edges)
+        elif i % 3 == 1:
+            yield TraversalRequest("bfs", seeds[:1], max_edges=max_edges,
+                                   max_vertices=4 * batch)
+        else:
+            yield TraversalRequest("path", [int(seeds[0])],
+                                   target=int(seeds[1]),
+                                   max_edges=max_edges)
+
+
+def serve_traversal(*, n_requests: int, batch: int, workdir: str = None,
+                    shards: int = 1, replication: int = 1,
+                    hotset_bytes: int = None,
+                    metrics_json: str = None,
+                    trace_sample: int = 0, device=None,
+                    path: str = None) -> dict:
+    """Synthetic zipf traversal traffic (:func:`traversal_mix`) against
+    :func:`make_traversal_server`: k-hop neighborhoods, bounded BFS
+    visits and shortest paths over hub-biased seeds, one request at a
+    time.
+
+    ``trace_sample=N`` turns on span tracing for every Nth request
+    (:class:`repro_torch.obs.Tracer`); the per-tier attribution report is
+    logged on exit.  ``metrics_json`` persists the folded
+    :func:`collect_service_metrics` snapshot there on exit.  Returns
+    ``service.as_dict()`` taken before the server closes (the JAX package
+    returns None)."""
+    from repro_torch.obs import Tracer
+    from repro_torch.query import TraversalShed
+
+    tracer = Tracer(sample_every=trace_sample) if trace_sample else None
+    service, close = make_traversal_server(workdir, shards=shards,
+                                           replication=replication,
+                                           hotset_bytes=hotset_bytes,
+                                           tracer=tracer, device=device,
+                                           path=path)
+    try:
+        t0 = time.perf_counter()
+        shed = 0
+        for req in traversal_mix(service.n_vertices, n_requests, batch,
+                                 max_edges=service.default_max_edges):
+            try:
+                service.request(req)
+            except TraversalShed:
+                shed += 1
+        wall = time.perf_counter() - t0
+        st = service.stats
+        qs = service.engine.stats
+        log.info("traversal serve: %d reqs in %.2fs (%.0f req/s); "
+                 "p50 %.3f ms p99 %.3f ms, shed %d (%.1f%%); "
+                 "%d frontier batches, %d edges scanned, "
+                 "engine dedup %.2fx, %d/%d device batches",
+                 st.completed, wall, st.completed / max(wall, 1e-9),
+                 st.p50_s * 1e3, st.p99_s * 1e3, shed,
+                 100 * st.shed_rate, st.frontier_batches,
+                 st.edges_scanned, qs.dedup_ratio, qs.device_batches,
+                 qs.batches)
+        d = service.as_dict()
+        if d.get("hotset"):
+            _log_hotset(d["hotset"])
+        if metrics_json or tracer is not None:
+            _emit_metrics(collect_service_metrics(service), tracer,
+                          metrics_json)
+        return d
     finally:
         close()
 
@@ -352,13 +555,20 @@ def main(argv=None) -> None:
                     help="RMAT scale of the served graph (2^scale vertices)")
     ap.add_argument("--edge-factor", type=int, default=8)
     ap.add_argument("--traversal", action="store_true",
-                    help="not ported yet (traversal serving)")
+                    help="serve multi-hop traversal requests (k-hop / "
+                         "BFS visit / shortest path) over the graph "
+                         "assets instead of model inference")
     ap.add_argument("--shards", type=int, default=1,
-                    help="not ported yet (sharded serving)")
+                    help="vertex-range shards for --traversal serving "
+                         "(each with its own engine and PG-Fuse mount; "
+                         "answers stay byte-identical)")
     ap.add_argument("--replication", type=int, default=1,
-                    help="not ported yet (replicated serving)")
+                    help="replicas per shard for --traversal serving "
+                         "(round-robin load balancing + failover)")
     ap.add_argument("--hotset-bytes", type=int, default=None,
-                    help="not ported yet (the hot-set tier)")
+                    help="byte budget for the device-resident hot-set "
+                         "tier of decoded hub runs (gnn/traversal "
+                         "serving; default: no hot set)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write a JSON metrics snapshot on exit")
     ap.add_argument("--trace-sample", type=int, default=0, metavar="N",
@@ -366,14 +576,22 @@ def main(argv=None) -> None:
                          "per-tier attribution report on exit (0: off)")
     args = ap.parse_args(argv)
 
-    if args.traversal or args.shards > 1 or args.replication > 1:
-        raise SystemExit("--traversal / --shards / --replication: traversal "
-                         "and sharded serving are not ported yet")
     try:
         spec = get_arch(args.arch)
     except KeyError as e:
         raise SystemExit(e.args[0]) from None
     cfg = spec.make_reduced() if args.reduced else spec.make_config()
+    if args.traversal:
+        if spec.family != "gnn":
+            raise SystemExit("--traversal serves graph requests; pick a "
+                             "gnn arch for its graph assets")
+        serve_traversal(n_requests=args.requests, batch=args.batch,
+                        workdir=args.workdir, shards=args.shards,
+                        replication=args.replication,
+                        hotset_bytes=args.hotset_bytes,
+                        metrics_json=args.metrics_json,
+                        trace_sample=args.trace_sample, device=args.device)
+        return
     if spec.family == "lm":
         serve_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
                  n_tokens=args.tokens, device=args.device)

@@ -388,11 +388,11 @@ def metrics_drift() -> List[str]:
 
     Returns one message per violation (empty list == in sync): a stats
     key missing from the namespace, a namespace key the class no longer
-    exposes, or a prefix whose class cannot be imported (in this port
-    that includes the ``traversal``, ``router`` and ``hotset`` sources
-    until those modules are ported).  In the JAX package it is run by
-    ``.github/scripts/metrics_drift.py`` (docs CI job) and
-    ``tests/test_docs_sync.py``.
+    exposes, or a prefix whose class cannot be imported.  In the JAX
+    package it is run by ``.github/scripts/metrics_drift.py`` (docs CI
+    job) and ``tests/test_docs_sync.py``; the port's tests hold this
+    copy to ``[]`` over every source (``query``, ``traversal``,
+    ``router``, ``hotset``, ``stream``, ``pgfuse``).
     """
     import importlib
 

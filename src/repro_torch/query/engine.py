@@ -24,8 +24,16 @@ The engine turns that property into a serving-grade query path:
   (:class:`repro_torch.query.window.AdaptiveWindow`) closes the batch EARLY
   the moment the pending dedup ratio stops improving — waiting only
   pays while concurrent traffic overlaps;
-* the JAX package's optional device-resident hot-set tier (``hotset=``)
-  is not ported yet: passing it raises ``NotImplementedError``;
+* an optional **device-resident hot-set tier**
+  (:class:`repro_torch.query.hotset.HotSetCache`, ``hotset=``) sits ABOVE
+  the gather: decoded neighbor runs of hub vertices stay resident on the
+  card under a byte budget with degree-aware admission
+  (:func:`repro_torch.core.policy.choose_hotset_admission` — pin hubs,
+  bypass the cold tail), so a hot hit touches neither storage nor the
+  PG-Fuse block cache nor the decoder, and trace-driven prefetch fetches
+  predicted-hot vertices after each batch, outside any request's
+  latency — hot answers are byte-identical to every decode path (the
+  differential tests assert it);
 * :class:`QueryStats` accounts every request: virtual-clock latency
   percentiles (p50/p99 under an injectable ``clock``, so benchmarks
   measure the *request pattern* against a simulated storage clock, not
@@ -39,7 +47,14 @@ chance eviction so the hot offset blocks survive packed-byte churn.
 
 Device rule: ``device=None`` means the GPU and raises when there is
 none, unless the engine is pinned to ``decode="host"`` (it then never
-touches a device); tests pass ``device="cpu"``.
+touches a device for decoding); tests pass ``device="cpu"``.  A hot set
+built here from a byte budget or a plan gets the same ``device`` — a
+device-placed tier goes to the GPU whatever the decode mode (as in the
+JAX package), so under ``decode="host"`` with ``device=None`` it raises
+without one.
+
+The full three-tier hierarchy (storage blocks / host-RAM PG-Fuse / HBM
+hot set) is laid out in ``docs/architecture.md``.
 """
 
 from __future__ import annotations
@@ -305,10 +320,6 @@ class NeighborQueryEngine:
             raise ValueError(
                 f"|V|={graph.n_vertices} overflows the kernel's int32 "
                 f"lanes; use decode='host' (or 'auto', which routes there)")
-        if hotset is not None:
-            raise NotImplementedError(
-                "hotset= needs repro_torch.query.hotset, which is not "
-                "ported yet")
         self._graph = graph
         self._clock = clock
         # where device batches decode: resolved up front so a missing GPU
@@ -335,7 +346,21 @@ class NeighborQueryEngine:
                             else 1 << 20)
         self.merge_gap = (int(merge_gap) if merge_gap is not None
                           else self._block_size)
-        self._hotset = None   # tier not ported yet (see __init__ check)
+        # the optional HBM-resident tier above the gather: an int is a
+        # byte budget (admission sized by policy from THIS graph's mean
+        # degree), a HotSetCache/HotSetPlan is used as given; a tier built
+        # here places its runs on ``device`` (None = the GPU)
+        self._hotset = None
+        if hotset is not None:
+            from repro_torch.query.hotset import HotSetCache
+            if isinstance(hotset, HotSetCache):
+                self._hotset = hotset
+            elif isinstance(hotset, _policy.HotSetPlan):
+                self._hotset = HotSetCache(plan=hotset, device=device)
+            else:
+                plan = _policy.choose_hotset_admission(
+                    graph.n_vertices, self._header.n_edges, int(hotset))
+                self._hotset = HotSetCache(plan=plan, device=device)
         self.stats = QueryStats()
         # per-batch folds share the stats object's OWN lock, so an
         # external stats.reset()/as_dict() is atomic against them
@@ -369,8 +394,8 @@ class NeighborQueryEngine:
 
     @property
     def hotset(self):
-        """The device-resident hot-set tier — always None until that
-        tier is ported."""
+        """The device-resident hot-set tier, or None (see
+        :mod:`repro_torch.query.hotset`)."""
         return self._hotset
 
     # -- the coalesced fetch core ------------------------------------------

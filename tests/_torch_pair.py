@@ -1,6 +1,8 @@
 """Helpers shared by the ``test_torch_*`` suites: both packages side by
 side (``ref`` = the JAX package, ``port`` = the PyTorch/CUDA port), fed
-from numpy so neither sees the other's types."""
+from numpy so neither sees the other's types.  ``side.dev`` holds the
+keywords that put a side's engines, caches and servers on the CPU (the
+port's default is the GPU; the JAX package takes no such keyword)."""
 
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import repro.core.pgfuse
 import repro.core.policy
 import repro.core.webgraph
 import repro.graph
+import repro.obs
+import repro.query
 import repro_torch.core.codec
 import repro_torch.core.compbin
 import repro_torch.core.csr
@@ -25,19 +29,23 @@ import repro_torch.core.pgfuse
 import repro_torch.core.policy
 import repro_torch.core.webgraph
 import repro_torch.graph
+import repro_torch.obs
+import repro_torch.query
 from repro_torch.convert import csr_from_numpy
 
 ref = types.SimpleNamespace(
     name="ref", codec=repro.core.codec, compbin=repro.core.compbin,
     csr=repro.core.csr, paragrapher=repro.core.paragrapher,
     pgfuse=repro.core.pgfuse, policy=repro.core.policy,
-    webgraph=repro.core.webgraph, graph=repro.graph)
+    webgraph=repro.core.webgraph, graph=repro.graph, query=repro.query,
+    obs=repro.obs, dev={})
 port = types.SimpleNamespace(
     name="port", codec=repro_torch.core.codec,
     compbin=repro_torch.core.compbin, csr=repro_torch.core.csr,
     paragrapher=repro_torch.core.paragrapher,
     pgfuse=repro_torch.core.pgfuse, policy=repro_torch.core.policy,
-    webgraph=repro_torch.core.webgraph, graph=repro_torch.graph)
+    webgraph=repro_torch.core.webgraph, graph=repro_torch.graph,
+    query=repro_torch.query, obs=repro_torch.obs, dev={"device": "cpu"})
 
 FORMATS = ("compbin", "logcsr", "webgraph")
 SUFFIX = {"compbin": "cbin", "logcsr": "lgsr", "webgraph": "wg"}

@@ -154,11 +154,31 @@ def test_request_spans_split_the_time_by_tier(tmp_path):
             "compute"} <= tiers
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """The hot-set option is ported: ``hotset_bytes`` serves (hub runs
+    answered from the tier, logits equal to the server without it), and
+    on a machine without a GPU the default device raises instead of
+    serving from host memory."""
     cfg = get_arch("gcn-cora").make_reduced()
-    with pytest.raises(NotImplementedError, match="hotset"):
+    seeds = np.arange(0, 64, 3)
+    logits = {}
+    for hot in (None, 1 << 20):
+        answer, engine, close = port_serve.make_gnn_server(
+            "gcn-cora", cfg, str(tmp_path), hotset_bytes=hot, decode="host",
+            device="cpu")
+        try:
+            logits[hot] = [answer(seeds), answer(seeds)]
+            if hot:
+                assert engine.hotset.stats.hits > 0
+                assert engine.hotset.stats.conserved
+        finally:
+            close()
+    for a, b in zip(logits[None], logits[1 << 20]):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         port_serve.make_gnn_server("gcn-cora", cfg, str(tmp_path),
-                                   hotset_bytes=1 << 20, device="cpu")
+                                   hotset_bytes=1 << 20)
 
 
 def test_cli_serves_and_writes_metrics(tmp_path, caplog):
@@ -170,8 +190,7 @@ def test_cli_serves_and_writes_metrics(tmp_path, caplog):
     metrics = json.loads(out.read_text())["metrics"]
     assert metrics["query.batches"] > 0
     assert metrics["obs.sampled_traces"] == 2
-    for argv, msg in ((["--arch", "gcn-cora", "--traversal"], "not ported"),
-                      (["--arch", "gcn-cora", "--shards", "2"], "not ported"),
+    for argv, msg in ((["--arch", "smollm-360m", "--traversal"], "gnn arch"),
                       (["--arch", "qwen2-moe-a2.7b"], "not ported"),
                       (["--arch", "din"], "not ported")):
         with pytest.raises(SystemExit, match=msg):

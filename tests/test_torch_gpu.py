@@ -370,3 +370,48 @@ def test_lm_serving_goes_through_the_kernel(cuda):
     np.testing.assert_allclose(t["logits"], want["logits"], rtol=1e-3,
                                atol=1e-3)
     np.testing.assert_array_equal(tokens, want_tokens)
+
+
+@pytest.fixture(scope="module")
+def serving_graph(smoke, tmp_path_factory):
+    csr, path, _, _ = smoke.make_graph(
+        13, str(tmp_path_factory.mktemp("serving")))
+    return csr, path
+
+
+def test_hotset_tier_lives_on_the_card(cuda, smoke, serving_graph):
+    """``chip_smoke.phase_hotset`` at scale 13 (every answer of the cold
+    and hot arms equal to the CSR as int64; K1's launches equal the device
+    batches), then a tier built from a byte budget with ``device=None``:
+    its runs are int32 tensors on the card, re-widened on every hit."""
+    csr, path = serving_graph
+    out = smoke.phase_hotset(csr, path, cuda, n_batches=6, batch=1024)
+    assert out["hot"]["hotset"]["hits"] > 0
+    assert out["cold"]["launches"] > 0 and out["hot"]["card_bytes"] > 0
+    hubs = np.argsort(np.diff(csr.offsets))[::-1][:64].astype(np.int64)
+    with open_graph(path, use_pgfuse=True) as g, \
+            NeighborQueryEngine(g, decode="auto", hotset=1 << 22) as eng:
+        for _ in range(2):
+            for v, got in zip(hubs, eng.neighbors_batch(hubs)):
+                assert got.dtype == np.int64
+                np.testing.assert_array_equal(got, csr.neighbors_of(int(v)))
+        assert eng.hotset.stats.hits >= len(hubs)
+        entry = eng.hotset._entries[int(hubs[0])]
+        assert entry.store.is_cuda and entry.store.dtype == torch.int32
+
+
+@pytest.mark.parametrize("arm", ["one_engine", "sharded"])
+def test_traversal_threads_and_replicas_count_every_launch(
+        cuda, smoke, serving_graph, arm):
+    """``chip_smoke.phase_traversal`` at scale 13: executor threads (and,
+    sharded, four replica engines on the one card) launch K1 concurrently;
+    every answer equals the plain numpy traversal and K1's launch delta
+    equals the engines' merged device batches."""
+    csr, path = serving_graph
+    kw = dict(shards=2, replication=2, hotset_bytes=1 << 20) \
+        if arm == "sharded" else {}
+    out = smoke.phase_traversal(csr, path, cuda,
+                                sequential={"khop": 3, "bfs": 3, "path": 3},
+                                n_concurrent=24, batch=32, **kw)
+    assert out["launches"] == out["device_batches"] > 0
+    assert out["executor_threads"] > 1

@@ -51,7 +51,9 @@ def test_every_slice_module_is_present():
                  "kernels.flash_attention.kernel",
                  "kernels.flash_attention.ops", "models.transformer",
                  "configs.smollm_360m", "configs.qwen2_1_5b",
-                 "configs.stablelm_1_6b", "launch.model_flops"):
+                 "configs.stablelm_1_6b", "launch.model_flops",
+                 "query.hotset", "query.traversal", "query.loadgen",
+                 "query.sharded"):
         assert f"repro_torch.{want}" in mods, want
     for kernel in ("compbin_decode", "segment_sum", "flash_attention"):
         assert (SRC / "repro_torch" / "csrc" / f"{kernel}.cu").is_file()
@@ -159,7 +161,8 @@ def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
 
 
 def test_metrics_namespace_matches_the_ported_stats_surfaces():
-    from repro_torch.obs.metrics import metrics_drift
-    unported = ("traversal", "router", "hotset")
-    drift = [m for m in metrics_drift() if not m.startswith(unported)]
-    assert drift == []      # query.*, stream.*, pgfuse.* are in sync
+    from repro_torch.obs.metrics import STATS_SOURCES, metrics_drift
+    # every source loads: query, traversal, router, hotset, stream, pgfuse
+    assert sorted(STATS_SOURCES) == ["hotset", "pgfuse", "query", "router",
+                                     "stream", "traversal"]
+    assert metrics_drift() == []

@@ -109,8 +109,10 @@ def test_constructor_contract(graph, tmp_path):
     with port.paragrapher.open_graph(path) as g:
         with pytest.raises(ValueError, match="decode must be one of"):
             PortEngine(g, decode="gpu", device="cpu")
-        with pytest.raises(NotImplementedError, match="hotset"):
-            PortEngine(g, hotset=1 << 20, device="cpu")
+        # a byte budget builds the hot-set tier, placed on the given device
+        with PortEngine(g, hotset=1 << 20, device="cpu") as eng:
+            assert eng.hotset.plan.budget_bytes == 1 << 20
+            _assert_answers(eng.neighbors_batch([3]), _expected(graph, [3]))
         # pinned to the host, an engine needs no device at all
         with PortEngine(g, decode="host") as eng:
             assert eng.hotset is None
