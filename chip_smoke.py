@@ -9,7 +9,8 @@ It builds every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card (the
 decode bit for bit; the segment sum's two designs -- rows, atomic -- to
 f32 rounding on the JAX sweep's shapes and nine id layouts, and rows
-bit for bit to itself on the served ids; flash attention's three
+bit for bit to itself on the served ids; the segment sum's backward, a
+gather, bit for bit on the same cases; flash attention's three
 designs -- tensor-core prefill, split decode, f32 FMA -- to the JAX
 package's kernel tolerances),
 drives the port's main paths through the library entry points -- load
@@ -23,8 +24,14 @@ the feature store, one transfer, forward pass with the segment-sum
 kernel), and serve
 smollm-360m at full width and depth (prefill + greedy decode against a
 KV cache, every attention on the flash-attention kernel; then again in
-bf16 with every attention call held to f64) -- checks every result
-against an independent plain computation, and prints what it measured.
+bf16 with every attention call held to f64), train gcn-cora at full
+width (the full graph streamed by two simulated hosts, K2's forward and
+its backward kernel, AdamW, a restart from a checkpoint after an injected
+failure, the first step held to the plain path; then sampled minibatches
+through the query engine), and compile the load file with the graph
+compiler and serve the hot-set trace from the compiled file -- checks
+every result against an independent plain computation, and prints what
+it measured.
 
 Output contract: the line before the last but one is the card's name and
 power limit as ``nvidia-smi`` gives them; the last but one is one JSON
@@ -33,8 +40,8 @@ object ``{"kernels": [...]}``; the last is
 Any failed phase raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device it exits with code 2 at once.
 
-The load/serve/LogCSR/hot-set/traversal/GNN phases are plain functions
-of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
+The load/serve/LogCSR/hot-set/traversal/GNN/train/compile phases are
+plain functions of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
 n_tokens)``, so the CPU tests run the same code at a small size.
 """
 
@@ -43,8 +50,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -67,12 +76,13 @@ from repro_torch.obs import Tracer, tier_times  # noqa: E402
 from repro_torch.kernels.compbin_decode import (compbin_decode,  # noqa: E402
                                                 compbin_decode_ref,
                                                 stream_bucket_ids)
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import (attention_bshd,  # noqa: E402
                                                  attention_ref,
                                                  flash_attention, plan)
 from repro_torch.kernels.segment_sum import plan as k2_plan  # noqa: E402
-from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
-                                             segment_sum_ref)
+from repro_torch.kernels.segment_sum import (  # noqa: E402
+    segment_sum, segment_sum_backward, segment_sum_grad_ref, segment_sum_ref)
 from repro_torch.kernels.segment_sum.ops import (  # noqa: E402
     DESIGNS as K2_DESIGNS, _segment_sum_design)
 from repro_torch.query import NeighborQueryEngine  # noqa: E402
@@ -106,8 +116,11 @@ LM_TOL = 1e-3
 #: ``HotSetStats`` charges them, 8 an edge)
 TRAVERSAL_HOTSET = 64 << 20
 #: traversal requests sent one at a time, by kind, per topology: a path
-#: request on the scale-23 file takes ~6-7 s, so it gets fewer
-TRAVERSAL_SEQUENTIAL = {"khop": 30, "bfs": 30, "path": 8}
+#: request on the scale-23 file takes 5-13 s (NVIDIA H100 80GB HBM3,
+#: 700.00 W; PERF.md), so it gets fewer (4 since the training and compile
+#: phases joined the run, to keep the whole script well inside its time
+#: limit on a slow host)
+TRAVERSAL_SEQUENTIAL = {"khop": 30, "bfs": 30, "path": 4}
 #: fewest latencies of a kind whose nearest-rank p99 is reported; below
 #: it only p50 and the largest are
 P99_MIN_N = 30
@@ -367,6 +380,7 @@ def phase_hotset(csr, path: str, device, *, n_batches: int = 48,
             _cuda_sync(device)
             mem1 = torch.cuda.memory_allocated(device) if on_gpu else 0
             qs = eng.stats.as_dict()
+            pg_hit = g.fs.stats().as_dict()["hit_rate"]
             hs = eng.hotset.stats.as_dict() if hot is not None else None
             if hot is not None:
                 # the resident runs sit where the tier was told to put them
@@ -391,7 +405,8 @@ def phase_hotset(csr, path: str, device, *, n_batches: int = 48,
             "launches": launched, "device_batches": qs["device_batches"],
             "batches": qs["batches"], "bytes_h2d": qs["bytes_h2d"],
             "edges_returned": qs["edges_returned"], "ids_checked": checked,
-            "card_bytes": mem1 - mem0,
+            "card_bytes": mem1 - mem0, "pgfuse_hit_rate": pg_hit,
+            "blocks_touched": qs["blocks_touched"],
             "tier_s_per_traced_batch": _mean_tiers(tracer.drain())}
         if hs is not None:
             assert hs["lookups"] == hs["hits"] + hs["misses"], hs
@@ -991,16 +1006,43 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def profile_device(work, classify, classes) -> tuple[float, dict, list]:
+    """``work()`` once under ``torch.profiler``: (host-clock wall seconds
+    to a synchronise, device milliseconds summed by ``classify(kernel
+    name)`` over ``classes``, [(ms, launches, name)] by kernel).  Only
+    device events count (a host op's own entry repeats its kernels'
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sums = dict.fromkeys(classes, 0.0)
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us:
+            sums[classify(ev.key)] += us / 1e3
+            kernels.append((us / 1e3, ev.count, ev.key[:60]))
+    return wall, sums, kernels
+
+
 def lm_device_split(cfg, params, batch: int, prompt_len: int,
                     n_decode: int) -> dict:
     """Where one prefill and ``n_decode`` decode steps spend the card's
     time: ``torch.profiler`` device time summed by kernel class (K3,
     GEMM, copies, other: norms, RoPE, SwiGLU, casts, argmax) against the
-    host-clock wall of the same profiled work.  Only device events count
-    (a host op's own entry repeats its kernels' time); with no device
-    time at all the split is reported as not measured (None)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    host-clock wall of the same profiled work (:func:`profile_device`);
+    with no device time at all the split is reported as not measured
+    (None)."""
     from repro_torch.models import transformer as tf
 
     rng = np.random.default_rng(1)
@@ -1022,24 +1064,8 @@ def lm_device_split(cfg, params, batch: int, prompt_len: int,
                 def work():
                     for _ in range(n_decode):
                         tf.decode_step(params, toks, cache, cfg)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                work()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            sums = {"k3": 0.0, "gemm": 0.0, "copy": 0.0, "other": 0.0}
-            kernels = []
-            for ev in prof.key_averages():
-                if ev.device_type != torch.autograd.DeviceType.CUDA:
-                    continue        # a host op: its kernels are counted
-                us = getattr(ev, "self_device_time_total", None)
-                if us is None:
-                    us = getattr(ev, "self_cuda_time_total", 0.0)
-                if us:
-                    sums[_kernel_class(ev.key)] += us / 1e3
-                    kernels.append((us / 1e3, ev.count, ev.key[:60]))
+            wall, sums, kernels = profile_device(
+                work, _kernel_class, ("k3", "gemm", "copy", "other"))
             busy = sum(sums.values())
             steps = 1 if part == "prefill" else n_decode
             out[part] = {"wall_ms": wall * 1e3 / steps,
@@ -1338,6 +1364,49 @@ def check_k2_determinism(device, n_seeds: int = 1024, d: int = 1433,
                 (first.cpu() - cpu).abs().max())}
 
 
+def check_k2_backward(ids: torch.Tensor, n: int, d: int, dtype, rng,
+                      what: str) -> int:
+    """K2's backward on one layout, bit for bit against its plain version
+    (a gather has no arithmetic): ``segment_sum_backward`` on f32
+    ``grad_out[n, d]``; autograd through ``segment_sum`` on ``dtype``
+    messages (the grad in the messages' dtype); and an expanded
+    (zero-stride) ``grad_out``, as ``.sum()`` hands one over.  One count
+    of ``segment_sum.grad_launches`` per call with work on the card, none
+    on the CPU.  Returns the number of checks."""
+    device = ids.device
+    on_gpu = device.type == "cuda"
+    e = ids.numel()
+    launch = int(on_gpu and e * d > 0)
+    grad_out = torch.from_numpy(rng.standard_normal((n, d)).astype(
+        np.float32)).to(device)
+    want = segment_sum_grad_ref(grad_out, ids, n)
+    before = segment_sum.grad_launches
+    got = segment_sum_backward(grad_out, ids, n)
+    assert segment_sum.grad_launches == before + launch, what
+    assert got.dtype == torch.float32 and got.shape == (e, d), got.shape
+    assert torch.equal(got, want), \
+        f"segment_sum backward on {what} != plain version"
+    checks = 1
+    msgs = _k2_messages(e, d, False, rng, device, dtype).requires_grad_()
+    out = segment_sum(msgs, ids, n)
+    assert out.requires_grad or not on_gpu, what
+    if out.requires_grad:
+        before = segment_sum.grad_launches
+        out.backward(grad_out)
+        assert segment_sum.grad_launches == before + launch, what
+        assert msgs.grad.dtype == dtype, msgs.grad.dtype
+        assert torch.equal(msgs.grad, want.to(dtype)), \
+            f"segment_sum autograd on {what} != plain version"
+        checks += 1
+    if n and d:
+        row = grad_out[:1].expand(n, d)
+        assert torch.equal(segment_sum_backward(row, ids, n),
+                           segment_sum_grad_ref(row.contiguous(), ids, n)), \
+            f"segment_sum backward on {what} with an expanded grad_out"
+        checks += 1
+    return checks
+
+
 def phase_segment_sum_checks(device="cuda", seed: int = 2,
                              n_seeds: int = 1024) -> dict:
     """K2 vs its plain version: each design (forced through
@@ -1346,20 +1415,22 @@ def phase_segment_sum_checks(device="cuda", seed: int = 2,
     and on every layout of :data:`K2_LAYOUTS`, in f32 and bf16, within
     ``K2_TOL`` (bit for bit where the layout is exact); one call-count of
     ``segment_sum.launches`` per call that has work; E = 0, N = 0 and
-    D = 0 giving zeros of the right shape; then the ``rows`` design's
-    determinism on the served ids (:func:`check_k2_determinism`) and, on
-    the card, the refusal of a tensor that requires grad."""
+    D = 0 giving zeros of the right shape; K2's backward bit for bit on
+    every case (:func:`check_k2_backward`); then the ``rows`` design's
+    determinism on the served ids (:func:`check_k2_determinism`)."""
     on_gpu = torch.device(device).type == "cuda"
     rng = np.random.default_rng(seed)
     cases = [(f"sweep E={e} D={d} N={n} ids<{hi}",
               rng.integers(-1, hi, e).astype(np.int32), n, d, False)
              for e, d, n in K2_SWEEP for hi in (n, n + 3)]
     cases += [(kind,) + k2_layout(kind, rng) for kind in K2_LAYOUTS]
-    n_cases = 0
+    n_cases = n_grad = 0
     for kind, ids_np, n, d, exact in cases:
         e = ids_np.size
         ids = torch.from_numpy(ids_np).to(device)
         for dtype in (torch.float32, torch.bfloat16):
+            n_grad += check_k2_backward(ids, n, d, dtype, rng,
+                                        f"{kind} ({str(dtype)[6:]})")
             msgs = _k2_messages(e, d, exact, rng, device, dtype)
             want = segment_sum_ref(msgs, ids, n)
             picked = k2_plan(e, d, n)
@@ -1386,18 +1457,9 @@ def phase_segment_sum_checks(device="cuda", seed: int = 2,
             assert got.shape == (n, d) and not got.any(), (design, e, d, n)
             n_cases += 1
     det = check_k2_determinism(device, n_seeds)
-    if on_gpu:
-        try:
-            segment_sum(torch.ones(4, 2, device=device, requires_grad=True),
-                        torch.zeros(4, dtype=torch.int32, device=device), 2)
-        except RuntimeError:
-            pass
-        else:
-            raise AssertionError(
-                "a CUDA tensor that requires grad did not raise")
-        torch.cuda.synchronize()
-    return {"cases": n_cases, "layouts": list(K2_LAYOUTS),
-            "determinism": det}
+    _cuda_sync(device)
+    return {"cases": n_cases, "backward_checks": n_grad,
+            "layouts": list(K2_LAYOUTS), "determinism": det}
 
 
 def k2_bytes(e: int, d: int, n: int, valid: int) -> int:
@@ -1458,6 +1520,68 @@ def measure_segment_sum(ids: torch.Tensor, d: int, n: int, flush,
             "library_ms": lib, "bound_ms": bms, "bound_by": by,
             "bytes": nbytes,
             "gb_per_s": nbytes / (designs[picked]["ms"] * 1e-3) / 1e9}
+
+
+def k2_grad_bound_ms(e: int, d: int, rows: int,
+                     id_bytes: int) -> tuple[float, str]:
+    """Least time for K2's backward on this data: each of the ``rows``
+    distinct rows of f32 ``grad_out`` that a valid id names read once (a
+    row named twice need not be read twice, a dropped id reads nothing),
+    the E x D f32 gradient written and the E ids read, over HBM
+    bandwidth; it does no arithmetic."""
+    return (4 * rows * d + 4 * e * d + e * id_bytes) / HBM_BYTES_PER_S \
+        * 1e3, "bytes"
+
+
+def measure_segment_sum_grad(ids: torch.Tensor, d: int, n: int, flush,
+                             gen: torch.Generator) -> dict:
+    """K2's backward at one training shape: random f32 ``grad_out[n, d]``
+    gathered by ``ids``; the kernel bit for bit against its plain version,
+    its CUDA-event time, its CUDA launches per call (profiler), the plain
+    version's time and the library calls' on the valid ids: the same
+    gather as ``grad_out.index_select(0, ids)``, ``grad_out[ids]`` and
+    ``embedding(ids, grad_out)``, each checked against the plain version;
+    ``library_ms`` is the fastest and ``library_call`` names it."""
+    e = ids.numel()
+    grad_out = torch.randn(n, d, generator=gen, device="cuda")
+
+    def call():
+        return segment_sum_backward(grad_out, ids, n)
+
+    assert torch.equal(call(), segment_sum_grad_ref(grad_out, ids, n)), \
+        "segment_sum backward (timed shape) != plain version"
+    counted = cuda_launches(call, "k2_") or (None, None, None)
+    ms = time_cuda(call, flush=flush)
+    plain = time_cuda(lambda: segment_sum_grad_ref(grad_out, ids, n),
+                      flush=flush)
+    valid = (ids >= 0) & (ids < n)
+    lib_ids = ids[valid]
+    libraries = {
+        "grad_out.index_select(0, ids)":
+            lambda: grad_out.index_select(0, lib_ids),
+        "grad_out[ids]": lambda: grad_out[lib_ids],
+        "embedding(ids, grad_out)":
+            lambda: torch.nn.functional.embedding(lib_ids, grad_out)}
+    want = segment_sum_grad_ref(grad_out, lib_ids, n)
+    for name, lib in libraries.items():     # the yardsticks agree
+        assert torch.equal(lib(), want), f"{name} != plain version"
+    del want
+    lib_ms = {name: time_cuda(lib, flush=flush)
+              for name, lib in libraries.items()}
+    best = min(lib_ms, key=lib_ms.get)
+    n_valid = int(valid.sum())
+    rows = int(torch.unique(lib_ids).numel())
+    bms, by = k2_grad_bound_ms(e, d, rows, ids.element_size())
+    nbytes = bms * 1e-3 * HBM_BYTES_PER_S
+    return {"e": e, "d": d, "n": n, "valid_edges": n_valid,
+            "grad_rows_read": rows, "ms": ms, "plain_ms": plain,
+            "library": lib_ms, "library_ms": lib_ms[best],
+            "library_call": best, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": 0.0, "bytes": nbytes,
+            "k2_launches_per_call": counted[0],
+            "cuda_launches_per_call": counted[1],
+            "kernel_device_ms": counted[2],
+            "gb_per_s": nbytes / (ms * 1e-3) / 1e9}
 
 
 def check_k2_plan_picks_the_faster(shapes: dict) -> None:
@@ -1822,6 +1946,428 @@ def phase_crossover(path: str, device) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# [train]: gcn-cora training on the card (multi-host streamed load, K2
+# forward and backward, AdamW, checkpoints with restart)
+# ---------------------------------------------------------------------------
+
+#: the first full-graph step on the kernel path against the plain path:
+#: loss rtol; grads rtol and atol as a share of the largest |g| (K2's
+#: atomic design adds in any order).  The restart is held to the grads'.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = (1e-4, 1e-6)
+#: the restart's final params: the L2 distance from the uninjected run's
+#: as a share of the distance that run moved them (:func:`check_restart`)
+RESTART_PARAM_SHARE = 1e-2
+#: StreamStats counters the cut between hosts cannot change: summed over
+#: hosts they equal one host's (partitions, H2D padding and cache traffic
+#: follow where the feature-aligned cuts fall, so they are reported only)
+STREAM_DATA_COUNTERS = ("vertices", "edges", "host_decode_bytes",
+                        "feature_rows", "feature_bytes",
+                        "feature_bytes_h2d", "label_rows", "label_bytes")
+
+
+@contextlib.contextmanager
+def plain_segment_sum():
+    """Every segment sum of the GCN on its plain version (autograd
+    through ``index_add_``), on any device: the yardstick the kernel path
+    is held against in training."""
+    from repro_torch.models.gnn import layers
+
+    saved = layers.segment_sum
+    layers.segment_sum = segment_sum_ref
+    try:
+        yield
+    finally:
+        layers.segment_sum = saved
+
+
+def train_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """``got`` within ``TRAIN_GRAD_TOL`` of ``want``; returns the max abs
+    error."""
+    rtol, share = TRAIN_GRAD_TOL
+    atol = share * float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    assert got.shape == want.shape and torch.allclose(
+        got, want, rtol=rtol, atol=atol), \
+        f"{what}: max abs err {err} beyond rtol {rtol}, atol {atol}"
+    return err
+
+
+def param_drift(got: dict, want: dict, start: dict) -> dict:
+    """How far ``got``'s params lie from ``want``'s, per param: the max
+    abs difference, and the L2 distance as a share of the distance
+    ``want`` moved from ``start``."""
+    out = {}
+    for k, w in want["params"].items():
+        moved = float((w - start[k]).norm())
+        out[k] = {"max_abs": float((got["params"][k] - w).abs().max()),
+                  "share": float((got["params"][k] - w).norm())
+                  / max(moved, 1e-30)}
+    return out
+
+
+def check_restart(resumed: dict, saved: dict, losses_after: list,
+                  clean_losses: list, final: dict, clean: dict,
+                  start: dict) -> dict:
+    """The restart held to the uninjected run.  K2's atomic sums round in
+    any order, and AdamW's ``m / sqrt(v)`` turns a near-zero gradient's
+    last-bit noise into up to ``lr`` of movement, so two uninjected runs
+    already differ element by element (``noise_floor``).  So: the state
+    the trainer resumed from must equal the state it checkpointed bit
+    for bit; every loss after the restore must equal the uninjected
+    run's for the same step within ``TRAIN_LOSS_RTOL``; and each final
+    param must lie within ``RESTART_PARAM_SHARE`` of the distance the
+    uninjected run moved it (L2).  A lost or stale restore leaves the run
+    a whole step off and fails all three."""
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed), tree_leaves(saved))), \
+        "the state the trainer resumed from is not the one it checkpointed"
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses_after,
+                                                  clean_losses))
+    assert len(losses_after) == len(clean_losses) and \
+        err <= TRAIN_LOSS_RTOL, \
+        f"losses after the restore {losses_after} != {clean_losses}"
+    drift = param_drift(final, clean, start)
+    for k, d in drift.items():
+        assert d["share"] <= RESTART_PARAM_SHARE, \
+            f"restored param {k} off the uninjected run's: {d}"
+    return {"loss_rel_err": err, "drift": drift}
+
+
+def train_step_split(step, state, batch) -> dict:
+    """Where one training step spends the card's time: device time by
+    kernel class (K2's kernels, GEMMs, copies, other: the gathers and
+    their backward, ``where``, products, loss, AdamW) against the
+    host-clock wall of the same step (:func:`profile_device`); None
+    where the trace holds no device time."""
+    wall, sums, kernels = profile_device(
+        lambda: step(state, batch),
+        lambda name: "k2" if "k2_" in name else _kernel_class(name),
+        ("k2", "gemm", "copy", "other"))
+    busy = sum(sums.values())
+    return {"wall_ms": wall * 1e3, "device_ms": sums if busy else None,
+            "idle_share": 1 - busy / (wall * 1e3) if busy else None,
+            "top_kernels": sorted(kernels, reverse=True)[:8]}
+
+
+def _k2_counts() -> tuple[int, int]:
+    return segment_sum.launches, segment_sum.grad_launches
+
+
+def phase_train(device, workdir: str, *, scale: int = 18,
+                edge_factor: int = 16, hosts: int = 2, steps: int = 10,
+                parity_scale: int = 16, sampled_steps: int = 16,
+                sampled_seeds: int = 1024, fail_at: int = 5,
+                ckpt_every: int = 4, reduced: bool = False,
+                seed: int = 0) -> dict:
+    """gcn-cora training through the port's training entry point
+    (``repro_torch.launch.train``), full width unless ``reduced``:
+
+    1. ``--full-graph --hosts N``'s load: the triplet of
+       ``ensure_gnn_assets(scale, edge_factor)`` streamed by ``hosts``
+       simulated hosts (feature-aligned cuts); the data counters of
+       ``StreamStats`` summed over hosts equal one host's, no byte is
+       decoded on the host, K1 launches once a partition;
+    2. ``steps`` AdamW steps with ``--full-graph``'s settings on that
+       batch: K2's forward launches ``n_layers + 1`` times a step and its
+       backward once (only layer 1's messages need a gradient), asserted
+       every step; the loss must fall;
+    3. the restart: the same run with a failure injected at ``fail_at``
+       and checkpoints every ``ckpt_every`` steps, held to the uninjected
+       one by :func:`check_restart`; a second uninjected run gives the
+       noise floor;
+    4. the first step's loss and every gradient on the kernel path
+       against the plain path on the same device, at ``parity_scale``;
+    5. ``--sampled``: ``sampled_steps`` steps of ``sampled_seeds`` seeds
+       through the query engine on the same triplet; K1's launches equal
+       the engine's device batches.
+    """
+    from repro_torch.configs import get_arch
+    from repro_torch.core import compbin as core_compbin
+    from repro_torch.data.multihost import aggregate_stats, simulate_hosts
+    from repro_torch.distributed import ResilientTrainer
+    from repro_torch.launch import train as tr
+    from repro_torch.models.gnn import gcn
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    on_gpu = torch.device(device).type == "cuda"
+    spec = get_arch("gcn-cora")
+    cfg = spec.make_reduced() if reduced else spec.make_config()
+    per_step = (cfg.n_layers + 1, 1) if on_gpu else (0, 0)
+    out = {"arch": cfg.name, "d_in": cfg.d_in, "d_hidden": cfg.d_hidden,
+           "n_classes": cfg.n_classes, "scale": scale,
+           "edge_factor": edge_factor, "hosts": hosts}
+    t_phase = time.perf_counter()
+
+    # 1. the multi-host streamed load, K1's count read just after
+    k1_0 = compbin_decode.launches
+    host0 = core_compbin.host_decoded_bytes()
+    t0 = time.perf_counter()
+    fb = tr._gnn_full_graph_batches("gcn-cora", cfg, workdir, True, hosts,
+                                    device=device, scale=scale,
+                                    edge_factor=edge_factor)
+    out["load_s"] = time.perf_counter() - t0
+    out["k1_load_launches"] = k1_load = compbin_decode.launches - k1_0
+    assert core_compbin.host_decoded_bytes() == host0, "host decode"
+    results = fb.results
+    agg = aggregate_stats(results)
+    assert all(r.stats.decode_mode == "device" for r in results), \
+        [r.stats.decode_reason for r in results]
+    assert agg.host_decode_bytes == 0, agg.host_decode_bytes
+    assert k1_load == (agg.partitions if on_gpu else 0), \
+        (k1_load, agg.partitions)
+    k1_0 = compbin_decode.launches
+    single = simulate_hosts(fb.path, 1, device, open_kwargs=fb.open_kwargs,
+                            feature_path=fb.feature_path,
+                            label_path=fb.label_path)[0].stats
+    out["k1_check_launches"] = compbin_decode.launches - k1_0
+    books = {k: (getattr(agg, k), getattr(single, k))
+             for k in STREAM_DATA_COUNTERS + ("partitions", "bytes_h2d")}
+    for k in STREAM_DATA_COUNTERS:
+        assert books[k][0] == books[k][1], (k, books[k])
+    del single
+    n_vertices = results[0].n_vertices
+    assert agg.vertices == agg.feature_rows == agg.label_rows == n_vertices
+    out.update(vertices=n_vertices, edges=agg.edges, align=fb.align,
+               stats_hosts_vs_one=books,
+               host_load_s=[r.stats.wall_s for r in results],
+               host_ranges=[list(r.host_range) for r in results],
+               host_partitions=[r.stats.partitions for r in results],
+               bytes_h2d=agg.bytes_h2d,
+               feature_bytes_h2d=agg.feature_bytes_h2d)
+    batch = fb.batch
+    assert batch["x"].shape == (n_vertices, cfg.d_in), batch["x"].shape
+    assert batch["edge_src"].shape == (agg.edges,)
+    assert batch["edge_src"].dtype == batch["edge_dst"].dtype == torch.int32
+    assert batch["x"].device.type == torch.device(device).type
+
+    # 2. full-graph AdamW steps, K2's counts read around every step
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps,
+                          master_f32=True)
+    init_fn, step = tr._make_step("gcn-cora", cfg, opt_cfg, "gnn",
+                                  device=device)
+    params0 = init_fn(seed)
+    state0 = {"params": params0, "opt": adamw_init(params0, opt_cfg)}
+    _cuda_sync(device)
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    state, losses, step_s, counts = state0, [], [], []
+    for _ in range(steps):
+        c0 = _k2_counts()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        _cuda_sync(device)
+        step_s.append(time.perf_counter() - t0)
+        counts.append(tuple(b - a for a, b in zip(c0, _k2_counts())))
+    assert all(c == per_step for c in counts), (counts, per_step)
+    if on_gpu:        # one more step, under the profiler
+        out["step_split"] = train_step_split(step, state, batch)
+        counts.append(per_step)
+    assert np.isfinite(losses).all(), losses
+    assert losses[-1] < losses[0], f"full-graph loss did not fall: {losses}"
+    out.update(losses=losses, step_s=step_s,
+               step_p50_s=statistics.median(step_s),
+               k2_per_step=list(per_step),
+               k2_launches=len(counts) * per_step[0],
+               k2_grad_launches=len(counts) * per_step[1],
+               max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                                     if on_gpu else None))
+
+    # 3. the restart: the same run, a failure injected at `fail_at`; a
+    # second uninjected run gives the noise floor of the atomic sums
+    def run_trainer(ckpt_dir, inject):
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        inputs, seen = [], []
+
+        def recording(st, b):
+            inputs.append(st)
+            return step(st, b)
+
+        final = ResilientTrainer(
+            recording, state0, ckpt_dir=ckpt_dir,
+            ckpt_every=ckpt_every).run(
+            itertools.repeat(batch), n_steps=steps, inject_failure_at=inject,
+            on_metrics=lambda s, m: seen.append((s, float(m["loss"]))))
+        return final, inputs, seen
+
+    c0 = _k2_counts()
+    restored, inputs, seen = run_trainer(
+        os.path.join(workdir, "train_ckpt"), fail_at)
+    resume = (fail_at // ckpt_every) * ckpt_every
+    ran = len(seen)
+    assert tuple(b - a for a, b in zip(c0, _k2_counts())) == (
+        ran * per_step[0], ran * per_step[1]), (c0, _k2_counts())
+    assert [s for s, _ in seen] == list(range(1, fail_at + 1)) + list(
+        range(resume + 1, steps + 1)), seen
+    replica = run_trainer(os.path.join(workdir, "train_ckpt_b"), None)[0]
+    ran += steps
+    out["restart"] = {"fail_at": fail_at, "ckpt_every": ckpt_every,
+                      "steps_replayed": fail_at - resume,
+                      **check_restart(inputs[fail_at], inputs[resume],
+                                      [x for _, x in seen[fail_at:]],
+                                      losses[resume:], restored, state,
+                                      params0),
+                      "noise_floor": param_drift(replica, state, params0)}
+    del restored, state, state0, inputs, replica
+    out["k2_launches"] += ran * per_step[0]
+    out["k2_grad_launches"] += ran * per_step[1]
+
+    # 4. the first step's loss and grads, kernel path vs plain path
+    pb = tr._gnn_full_graph_batches("gcn-cora", cfg, workdir, True, hosts,
+                                    device=device, scale=parity_scale,
+                                    edge_factor=edge_factor)
+    out["k1_load_launches"] += sum(r.stats.partitions for r in pb.results) \
+        if on_gpu else 0
+
+    def loss_grads():
+        p = {k: v.detach().requires_grad_() for k, v in params0.items()}
+        loss = gcn.loss_fn(p, pb.batch, cfg)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return float(loss.detach()), dict(zip(p, grads))
+
+    c0 = _k2_counts()
+    loss_k, grads_k = loss_grads()
+    c1 = _k2_counts()
+    with plain_segment_sum():
+        loss_p, grads_p = loss_grads()
+    assert _k2_counts() == c1 and (c1[0] - c0[0], c1[1] - c0[1]) == \
+        per_step, (c0, c1, _k2_counts())
+    assert abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p), \
+        f"first-step loss {loss_k} != plain path's {loss_p}"
+    out["parity"] = {
+        "scale": parity_scale, "vertices": pb.results[0].n_vertices,
+        "edges": int(pb.batch["edge_src"].numel()), "loss": loss_k,
+        "plain_loss": loss_p, "loss_rel_err": abs(loss_k - loss_p)
+        / abs(loss_p),
+        "grad_max_abs_err": {k: train_close(grads_k[k], grads_p[k],
+                                            f"first-step grad {k}")
+                             for k in grads_p}}
+    out["k2_launches"] += per_step[0]
+    out["k2_grad_launches"] += per_step[1]
+    del pb, grads_k, grads_p
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    # 5. --sampled: minibatches through the query engine, K1 zeroed just
+    # before and read just after
+    sopt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=sampled_steps,
+                       master_f32=True)
+    sinit, sstep = tr._make_step("gcn-cora", cfg, sopt, "gnn", device=device)
+    k1_0 = compbin_decode.launches
+    sb = tr._gnn_sampled_batches("gcn-cora", cfg, workdir, True,
+                                 batch_seeds=sampled_seeds, device=device,
+                                 scale=scale, edge_factor=edge_factor)
+    try:
+        sp = sinit(seed)
+        st = {"params": sp, "opt": adamw_init(sp, sopt)}
+        fetch_s, sstep_s, slosses, scounts = [], [], [], []
+        for _ in range(sampled_steps):
+            t0 = time.perf_counter()
+            b = next(sb)
+            t1 = time.perf_counter()
+            c0 = _k2_counts()
+            st, met = sstep(st, b)
+            slosses.append(float(met["loss"]))
+            _cuda_sync(device)
+            fetch_s.append(t1 - t0)
+            sstep_s.append(time.perf_counter() - t1)
+            scounts.append(tuple(y - x for x, y in zip(c0, _k2_counts())))
+        k1_sampled = compbin_decode.launches - k1_0
+        qs = sb.engine.stats.as_dict()
+    finally:
+        sb.close()
+    assert all(c == per_step for c in scounts), scounts
+    assert np.isfinite(slosses).all(), slosses
+    assert k1_sampled == (qs["device_batches"] if on_gpu else 0), \
+        (k1_sampled, qs["device_batches"])
+    assert not on_gpu or qs["device_batches"] > 0, qs
+    out["sampled"] = {
+        "steps": sampled_steps, "seeds": sampled_seeds,
+        "losses": slosses, "fetch_p50_s": statistics.median(fetch_s),
+        "step_p50_s": statistics.median(sstep_s),
+        "total_p50_s": statistics.median(
+            [a + c for a, c in zip(fetch_s, sstep_s)]),
+        "k1_launches": k1_sampled, "device_batches": qs["device_batches"],
+        "query_batches": qs["batches"], "edges": int(b["edge_dst"].numel()),
+        "valid_edges": int((b["edge_dst"] >= 0).sum()),
+        "nodes": int(b["x"].shape[0])}
+    out["k1_launches"] = out["k1_load_launches"] + k1_sampled
+    out["k2_launches"] += sampled_steps * per_step[0]
+    out["k2_grad_launches"] += sampled_steps * per_step[1]
+    # the two training shapes K2's backward sees, for its timing
+    out["full_graph_ids"] = batch["edge_dst"]
+    out["sampled_ids"] = b["edge_dst"]
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [compile]: the graph compiler on the load file, then a cold engine on
+# the compiled file answering the hot-set trace
+# ---------------------------------------------------------------------------
+
+def phase_compile(csr, path: str, device, workdir: str, *,
+                  n_batches: int = 48, batch: int = 1024,
+                  seed: int = 0) -> dict:
+    """``compile_graph`` the CompBin file at ``path`` (the policy's
+    strategy), then replay :func:`phase_hotset`'s trace, mapped through
+    ``new_of_old``, through a cold engine (the same mount and
+    ``decode="auto"``) on the compiled file.  Every answer, mapped back
+    through the sidecar, must equal ``csr``'s row as int64; K1's launch
+    delta must equal the engine's device batches."""
+    from repro_torch.graph.reorder import (compile_graph, invert_permutation,
+                                           map_back, read_sidecar)
+
+    on_gpu = torch.device(device).type == "cuda"
+    amode = policy.choose_access_mode("serve")
+    out_path = os.path.join(workdir, "compiled_" + os.path.basename(path))
+    t0 = time.perf_counter()
+    rep = compile_graph(path, out_path, codec="compbin")
+    compile_s = time.perf_counter() - t0
+    want_strategy = policy.choose_reorder(csr.n_vertices,
+                                          csr.n_edges).strategy
+    assert rep.strategy == want_strategy, (rep.strategy, want_strategy)
+    old_of_new = read_sidecar(rep.sidecar_path)
+    new_of_old = invert_permutation(old_of_new)
+    degrees = np.diff(csr.offsets)
+    trace, _ = hotset_trace(degrees, n_batches, batch, seed=seed)
+    pg_budget = max(64 * SERVE_BLOCK_SIZE, os.path.getsize(out_path) // 2)
+    launches0 = compbin_decode.launches
+    lat, checked = [], 0
+    with open_graph(out_path, use_pgfuse=True,
+                    pgfuse_block_size=SERVE_BLOCK_SIZE,
+                    pgfuse_readahead=amode.readahead,
+                    pgfuse_eviction=amode.eviction,
+                    pgfuse_max_resident_bytes=pg_budget) as g, \
+            NeighborQueryEngine(g, decode="auto", device=device) as eng:
+        for vs in trace:
+            t1 = time.perf_counter()
+            ans = eng.neighbors_batch(new_of_old[vs])
+            lat.append(time.perf_counter() - t1)
+            back = [map_back(old_of_new, a) for a in ans]
+            checked += _check_answers(csr, vs, back)
+        qs = eng.stats.as_dict()
+        pg = g.fs.stats().as_dict()
+    launched = compbin_decode.launches - launches0
+    assert launched == (qs["device_batches"] if on_gpu else 0), \
+        (launched, qs["device_batches"])
+    p50, p99 = _quantiles(lat)
+    return {"strategy": rep.strategy, "reason": rep.reason,
+            "compile_s": compile_s, "in_bytes": rep.in_bytes,
+            "out_bytes": rep.out_bytes,
+            "sidecar_bytes": os.path.getsize(rep.sidecar_path),
+            "verified_vertices": rep.verified_vertices,
+            "batches": n_batches, "batch": batch, "p50_s": p50,
+            "p99_s": p99, "latency_s": lat, "ids_checked": checked,
+            "pgfuse_hit_rate": pg["hit_rate"],
+            "blocks_touched": qs["blocks_touched"],
+            "launches": launched, "device_batches": qs["device_batches"],
+            "query_batches": qs["batches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=23,
@@ -1907,7 +2453,8 @@ def main(argv=None) -> int:
         f"f32 rtol/atol "
         f"{K2_TOL[torch.float32]}, bf16 {K2_TOL[torch.bfloat16]} of the "
         f"plain version (one_segment bit for bit); int64 ids "
-        f"{list(WIDE_IDS)} dropped by both designs; requires_grad raises")
+        f"{list(WIDE_IDS)} dropped by both designs; backward bit for bit "
+        f"on every case ({k2_checks['backward_checks']} checks)")
     log(f"[kernel] segment_sum rows on the served layout (E={det['e']}, "
         f"{det['valid_edges']} valid, D={det['d']}, N={det['n']}): bit-"
         f"identical across two calls; equal to the CPU plain version bit "
@@ -2103,120 +2650,253 @@ def main(argv=None) -> int:
                     f"{key}: {r['atomic']:.4f} / {r['rows']:.4f} "
                     f"{r['plan']}" for key, r in rows.items()))
 
-    # phase 11: LM serving at smollm-360m's full width, K3 path vs the
-    # plain attention path in f32 on the same card
-    spec = get_arch("smollm-360m")
-    lm_cfg = spec.make_config()
-    if args.lm_layers:
-        lm_cfg = dataclasses.replace(lm_cfg, n_layers=args.lm_layers)
-    lm_check = phase_lm_check(device, dataclasses.replace(
-        lm_cfg, dtype=torch.float32), batch=2, prompt_len=512, n_tokens=8)
-    assert lm_check["launches"] == lm_cfg.n_layers * 8, lm_check["launches"]
-    full, yard = (lm_check["full_depth_k3_vs_plain"],
-                  lm_check["full_depth_dense_vs_chunked"])
-    sh = {k[7:]: x for k, x in lm_check.items() if k.startswith("shadow_")}
-    log(f"[lm] {lm_cfg.name} f32 ({lm_cfg.n_layers} layers, d_model "
-        f"{lm_cfg.d_model}, {lm_cfg.n_heads}/{lm_cfg.n_kv_heads} heads, "
-        f"vocab {lm_cfg.vocab}): batch 2 x 512-token prompts, 8 tokens; "
-        f"{sh['calls']} attention calls on the K3 path each within rtol "
-        f"{K3_TOL[torch.float32]}, atol {K3_TOL[torch.float32]} x max(1, "
-        f"max|v|) (per call {sh['atol_min']:.4g}-{sh['atol_max']:.4g}) of "
-        f"f64 attention on the same inputs (max abs err "
-        f"{sh['max_abs_err']:.3g}, at most {sh['worst_err_over_atol']:.3g} "
-        f"of its call's atol; the plain f32 path's "
-        f"{sh['plain_max_abs_err']:.3g}); {lm_check['launches']} K3 "
-        f"launches")
-    log(f"[lm] end to end at {lm_check['e2e_layers']} layers: logits within "
-        f"{LM_TOL} of the plain path (max abs err "
-        f"{lm_check['max_abs_err']:.3g} over {lm_check['steps_compared']} "
-        f"row-steps), {len(lm_check['flips'])} token flips")
-    log(f"[lm] end to end at {lm_cfg.n_layers} layers (reported): K3 vs "
-        f"plain max abs logit diff {full['max_abs_err']:.3g}, tokens equal "
-        f"{full['tokens_equal']:.3f}; the plain path's dense vs chunked "
-        f"backends {yard['max_abs_err']:.3g}, tokens equal "
-        f"{yard['tokens_equal']:.3f}")
+        # phase 11: LM serving at smollm-360m's full width, K3 path vs the
+        # plain attention path in f32 on the same card
+        spec = get_arch("smollm-360m")
+        lm_cfg = spec.make_config()
+        if args.lm_layers:
+            lm_cfg = dataclasses.replace(lm_cfg, n_layers=args.lm_layers)
+        lm_check = phase_lm_check(device, dataclasses.replace(
+            lm_cfg, dtype=torch.float32), batch=2, prompt_len=512, n_tokens=8)
+        assert lm_check["launches"] == lm_cfg.n_layers * 8, lm_check["launches"]
+        full, yard = (lm_check["full_depth_k3_vs_plain"],
+                      lm_check["full_depth_dense_vs_chunked"])
+        sh = {k[7:]: x for k, x in lm_check.items() if k.startswith("shadow_")}
+        log(f"[lm] {lm_cfg.name} f32 ({lm_cfg.n_layers} layers, d_model "
+            f"{lm_cfg.d_model}, {lm_cfg.n_heads}/{lm_cfg.n_kv_heads} heads, "
+            f"vocab {lm_cfg.vocab}): batch 2 x 512-token prompts, 8 tokens; "
+            f"{sh['calls']} attention calls on the K3 path each within rtol "
+            f"{K3_TOL[torch.float32]}, atol {K3_TOL[torch.float32]} x max(1, "
+            f"max|v|) (per call {sh['atol_min']:.4g}-{sh['atol_max']:.4g}) of "
+            f"f64 attention on the same inputs (max abs err "
+            f"{sh['max_abs_err']:.3g}, at most {sh['worst_err_over_atol']:.3g} "
+            f"of its call's atol; the plain f32 path's "
+            f"{sh['plain_max_abs_err']:.3g}); {lm_check['launches']} K3 "
+            f"launches")
+        log(f"[lm] end to end at {lm_check['e2e_layers']} layers: logits within "
+            f"{LM_TOL} of the plain path (max abs err "
+            f"{lm_check['max_abs_err']:.3g} over {lm_check['steps_compared']} "
+            f"row-steps), {len(lm_check['flips'])} token flips")
+        log(f"[lm] end to end at {lm_cfg.n_layers} layers (reported): K3 vs "
+            f"plain max abs logit diff {full['max_abs_err']:.3g}, tokens equal "
+            f"{full['tokens_equal']:.3f}; the plain path's dense vs chunked "
+            f"backends {yard['max_abs_err']:.3g}, tokens equal "
+            f"{yard['tokens_equal']:.3f}")
 
-    # phase 12: LM serving in bf16 after a short warm-up (cuBLAS picks
-    # its bf16 kernels), the K3 launch counter zeroed just before the
-    # timed run
-    from repro_torch.models import transformer as tf
-    lm_params = tf.init_params(lm_cfg, torch.Generator(device=device)
-                               .manual_seed(0))
-    from repro_torch.launch.serve import serve_lm
-    serve_lm(lm_cfg, batch=args.lm_batch, prompt_len=args.lm_prompt_len,
-             n_tokens=2, device=device, params=lm_params)   # warm-up
-    flash_attention.launches = 0
-    lm = phase_lm_serve(device, lm_cfg, args.lm_batch, args.lm_prompt_len,
-                        args.lm_tokens, params=lm_params)
-    lm_k3 = flash_attention.launches
-    # after the count: where the card's time goes, by kernel class
-    lm["device_split"] = split = lm_device_split(
-        lm_cfg, lm_params, args.lm_batch, args.lm_prompt_len, 3)
-    assert lm_k3 == lm["launches"] == lm_cfg.n_layers * args.lm_tokens, \
-        (lm_k3, lm["launches"])
-    # the served dtype at full depth, every attention call held to f64 on
-    # the same inputs (prefill: tc_prefill; decode steps: split_decode)
-    shadow = phase_lm_shadow(device, lm_cfg, lm_params, args.lm_batch,
-                             args.lm_prompt_len, LM_SHADOW_TOKENS)
-    del lm_params
-    assert shadow["launches"] == shadow["calls"], shadow
-    log(f"[lm] {lm_cfg.name} bf16: {args.lm_batch} x {args.lm_prompt_len}"
-        f"-token prompts, {args.lm_tokens} tokens: prefill "
-        f"{lm['prefill_ms']:.3f} ms ({lm['prefill_flops']:.4g} FLOP by "
-        f"lm_model_flops, {lm['prefill_flops_per_s'] / 1e12:.2f} TFLOP/s = "
-        f"{100 * lm['prefill_bf16_peak_share']:.2f} % of 989 TFLOP/s), "
-        f"decode {lm['decode_ms_per_step']:.3f} ms per step, "
-        f"{lm['tokens_per_s']:.1f} tokens/s; K3 launches {lm_k3} "
-        f"({lm_cfg.n_layers} prefill + {args.lm_tokens - 1} x "
-        f"{lm_cfg.n_layers} decode)")
-    g, pairs = lm_cfg.n_heads // lm_cfg.n_kv_heads, \
-        args.lm_batch * lm_cfg.n_kv_heads
-    prefill_design = plan(lm_cfg.dtype, g * args.lm_prompt_len,
-                          args.lm_prompt_len, lm_cfg.d_head, pairs)[0]
-    decode_design = plan(lm_cfg.dtype, g, args.lm_prompt_len + 1,
-                         lm_cfg.d_head, pairs)[0]
-    log(f"[lm] {lm_cfg.name} bf16 shadow: {args.lm_batch} x "
-        f"{args.lm_prompt_len}-token prompts, {LM_SHADOW_TOKENS} "
-        f"tokens, {shadow['calls']} attention calls on the K3 path "
-        f"(prefill {prefill_design}, decode {decode_design}) each within "
-        f"rtol {K3_TOL[torch.bfloat16]}, atol {K3_TOL[torch.bfloat16]} x "
-        f"max(1, max|v|) (per call {shadow['atol_min']:.4g}-"
-        f"{shadow['atol_max']:.4g}) of f64 attention on the same inputs "
-        f"(max abs err {shadow['max_abs_err']:.3g}, at most "
-        f"{shadow['worst_err_over_atol']:.3g} of its call's atol; the plain "
-        f"bf16 path's {shadow['plain_max_abs_err']:.3g}); "
-        f"{shadow['launches']} K3 launches")
-    for part, sp in split.items():
-        dev = sp["device_ms"]
-        log(f"[lm] {part} (torch.profiler, per "
-            f"{'prefill' if part == 'prefill' else 'decode step'}): wall "
-            f"{sp['wall_ms']:.3f} ms; device "
-            + ("not measured (no device time in the trace)" if dev is None
-               else ", ".join(f"{k} {v:.3f} ms" for k, v in dev.items())
-               + f"; idle share {sp['idle_share']:.3f}"))
-        log(f"[lm] {part} top kernels (ms, launches, name): " + "; ".join(
-            f"{ms:.3f} {n} {name}" for ms, n, name in sp["top_kernels"]))
+        # phase 12: LM serving in bf16 after a short warm-up (cuBLAS picks
+        # its bf16 kernels), the K3 launch counter zeroed just before the
+        # timed run
+        from repro_torch.models import transformer as tf
+        lm_params = tf.init_params(lm_cfg, torch.Generator(device=device)
+                                   .manual_seed(0))
+        from repro_torch.launch.serve import serve_lm
+        serve_lm(lm_cfg, batch=args.lm_batch, prompt_len=args.lm_prompt_len,
+                 n_tokens=2, device=device, params=lm_params)   # warm-up
+        flash_attention.launches = 0
+        lm = phase_lm_serve(device, lm_cfg, args.lm_batch, args.lm_prompt_len,
+                            args.lm_tokens, params=lm_params)
+        lm_k3 = flash_attention.launches
+        # after the count: where the card's time goes, by kernel class
+        lm["device_split"] = split = lm_device_split(
+            lm_cfg, lm_params, args.lm_batch, args.lm_prompt_len, 3)
+        assert lm_k3 == lm["launches"] == lm_cfg.n_layers * args.lm_tokens, \
+            (lm_k3, lm["launches"])
+        # the served dtype at full depth, every attention call held to f64 on
+        # the same inputs (prefill: tc_prefill; decode steps: split_decode)
+        shadow = phase_lm_shadow(device, lm_cfg, lm_params, args.lm_batch,
+                                 args.lm_prompt_len, LM_SHADOW_TOKENS)
+        del lm_params
+        assert shadow["launches"] == shadow["calls"], shadow
+        log(f"[lm] {lm_cfg.name} bf16: {args.lm_batch} x {args.lm_prompt_len}"
+            f"-token prompts, {args.lm_tokens} tokens: prefill "
+            f"{lm['prefill_ms']:.3f} ms ({lm['prefill_flops']:.4g} FLOP by "
+            f"lm_model_flops, {lm['prefill_flops_per_s'] / 1e12:.2f} TFLOP/s = "
+            f"{100 * lm['prefill_bf16_peak_share']:.2f} % of 989 TFLOP/s), "
+            f"decode {lm['decode_ms_per_step']:.3f} ms per step, "
+            f"{lm['tokens_per_s']:.1f} tokens/s; K3 launches {lm_k3} "
+            f"({lm_cfg.n_layers} prefill + {args.lm_tokens - 1} x "
+            f"{lm_cfg.n_layers} decode)")
+        g, pairs = lm_cfg.n_heads // lm_cfg.n_kv_heads, \
+            args.lm_batch * lm_cfg.n_kv_heads
+        prefill_design = plan(lm_cfg.dtype, g * args.lm_prompt_len,
+                              args.lm_prompt_len, lm_cfg.d_head, pairs)[0]
+        decode_design = plan(lm_cfg.dtype, g, args.lm_prompt_len + 1,
+                             lm_cfg.d_head, pairs)[0]
+        log(f"[lm] {lm_cfg.name} bf16 shadow: {args.lm_batch} x "
+            f"{args.lm_prompt_len}-token prompts, {LM_SHADOW_TOKENS} "
+            f"tokens, {shadow['calls']} attention calls on the K3 path "
+            f"(prefill {prefill_design}, decode {decode_design}) each within "
+            f"rtol {K3_TOL[torch.bfloat16]}, atol {K3_TOL[torch.bfloat16]} x "
+            f"max(1, max|v|) (per call {shadow['atol_min']:.4g}-"
+            f"{shadow['atol_max']:.4g}) of f64 attention on the same inputs "
+            f"(max abs err {shadow['max_abs_err']:.3g}, at most "
+            f"{shadow['worst_err_over_atol']:.3g} of its call's atol; the plain "
+            f"bf16 path's {shadow['plain_max_abs_err']:.3g}); "
+            f"{shadow['launches']} K3 launches")
+        for part, sp in split.items():
+            dev = sp["device_ms"]
+            log(f"[lm] {part} (torch.profiler, per "
+                f"{'prefill' if part == 'prefill' else 'decode step'}): wall "
+                f"{sp['wall_ms']:.3f} ms; device "
+                + ("not measured (no device time in the trace)" if dev is None
+                   else ", ".join(f"{k} {v:.3f} ms" for k, v in dev.items())
+                   + f"; idle share {sp['idle_share']:.3f}"))
+            log(f"[lm] {part} top kernels (ms, launches, name): " + "; ".join(
+                f"{ms:.3f} {n} {name}" for ms, n, name in sp["top_kernels"]))
 
-    # phase 13: K3 per design: the two served shapes (bf16) and the f32
-    # correctness run's two
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(4)
-    k3 = {}
-    for kind in K3_SHAPES:
-        r = k3[kind] = measure_flash(kind, flush, gen)
-        log(f"[kernel] flash_attention {kind} ({r['design']}, nsplit "
-            f"{r['nsplit']}, CUDA launches per call (profiler) "
-            f"{r['cuda_launches_per_call'] or 'not measured'}) "
-            f"{r['dtype']} q[{r['b']},{r['hq']},{r['sq']},{r['dh']}] over "
-            f"{r['kv_len']} keys x {r['hkv']} heads: kernel "
-            f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})  {r['tflop_per_s']:.2f} TFLOP/s  "
-            f"{r['gb_per_s']:.1f} GB/s  plain {r['plain_ms']:.4f} ms  "
-            + "  ".join(f"{name} {t:.4f} ms"
-                        for name, t in r["library"].items())
-            + f"  max_abs_err {r['max_abs_err']:.3g}")
+        # phase 13: K3 per design: the two served shapes (bf16) and the f32
+        # correctness run's two
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4)
+        k3 = {}
+        for kind in K3_SHAPES:
+            r = k3[kind] = measure_flash(kind, flush, gen)
+            log(f"[kernel] flash_attention {kind} ({r['design']}, nsplit "
+                f"{r['nsplit']}, CUDA launches per call (profiler) "
+                f"{r['cuda_launches_per_call'] or 'not measured'}) "
+                f"{r['dtype']} q[{r['b']},{r['hq']},{r['sq']},{r['dh']}] over "
+                f"{r['kv_len']} keys x {r['hkv']} heads: kernel "
+                f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})  {r['tflop_per_s']:.2f} TFLOP/s  "
+                f"{r['gb_per_s']:.1f} GB/s  plain {r['plain_ms']:.4f} ms  "
+                + "  ".join(f"{name} {t:.4f} ms"
+                            for name, t in r["library"].items())
+                + f"  max_abs_err {r['max_abs_err']:.3g}")
+        # phase 14: [train] gcn-cora training at full width on the GNN
+        # phase's assets; K1's and both of K2's counts zeroed just before
+        # and read just after
+        del flush
+        torch.cuda.empty_cache()
+        compbin_decode.launches = 0
+        segment_sum.launches = segment_sum.grad_launches = 0
+        trn = phase_train(device, workdir, scale=args.gnn_scale)
+        train_k1 = compbin_decode.launches - trn["k1_check_launches"]
+        train_k2, train_k2b = segment_sum.launches, segment_sum.grad_launches
+        assert train_k1 == trn["k1_launches"] > 0, (train_k1, trn)
+        assert (train_k2, train_k2b) == (trn["k2_launches"],
+                                         trn["k2_grad_launches"]), \
+            (train_k2, train_k2b)
+        assert train_k2 > 0 and train_k2b > 0
+        books = trn["stats_hosts_vs_one"]
+        log(f"[train] {trn['arch']} (d_in {trn['d_in']}, d_hidden "
+            f"{trn['d_hidden']}, {trn['n_classes']} classes) --full-graph "
+            f"on {trn['hosts']} simulated hosts, rmat({trn['scale']}, "
+            f"{trn['edge_factor']}): {trn['vertices']} vertices, "
+            f"{trn['edges']} edges; load {trn['load_s']:.3f} s (per host "
+            + ", ".join(f"{t:.3f}" for t in trn["host_load_s"])
+            + f" s; ranges {trn['host_ranges']}, partitions "
+            f"{trn['host_partitions']}, align {trn['align']}); summed over "
+            f"hosts = one host's: " + ", ".join(
+                f"{k} {books[k][0]}" for k in STREAM_DATA_COUNTERS)
+            + f" (cut-dependent, hosts / one: partitions "
+            f"{books['partitions'][0]} / {books['partitions'][1]}, bytes_h2d "
+            f"{books['bytes_h2d'][0]} / {books['bytes_h2d'][1]}); 0 bytes "
+            f"decoded on the host")
+        log(f"[train] {len(trn['losses'])} AdamW steps: loss "
+            f"{trn['losses'][0]:.6f} -> {trn['losses'][-1]:.6f}; step p50 "
+            f"{trn['step_p50_s'] * 1e3:.3f} ms (steps "
+            + ", ".join(f"{t * 1e3:.1f}" for t in trn["step_s"])
+            + f" ms); max_memory_allocated {trn['max_memory_allocated']} B; "
+            f"K2 a step: {trn['k2_per_step'][0]} forward, "
+            f"{trn['k2_per_step'][1]} backward (asserted every step)")
+        sp = trn.get("step_split") or {}
+        log(f"[train] one full-graph step (torch.profiler): wall "
+            f"{sp.get('wall_ms', float('nan')):.3f} ms; device "
+            + ("not measured (no device time in the trace)"
+               if not sp.get("device_ms") else ", ".join(
+                   f"{k} {v:.3f} ms" for k, v in sp["device_ms"].items())
+               + f"; idle share {sp['idle_share']:.3f}; top kernels (ms, "
+               f"launches, name): " + "; ".join(
+                   f"{ms:.3f} {n} {name}" for ms, n, name in
+                   sp["top_kernels"])))
+        rs, par, smp = trn["restart"], trn["parity"], trn["sampled"]
+        log(f"[train] restart: failure injected at step {rs['fail_at']}, "
+            f"checkpoints every {rs['ckpt_every']}, "
+            f"{rs['steps_replayed']} step(s) replayed; resumed from the "
+            f"checkpointed state bit for bit; losses after the restore "
+            f"within {rs['loss_rel_err']:.3g} (<= {TRAIN_LOSS_RTOL}) of the "
+            f"uninjected run's; final params off the uninjected run's by "
+            + ", ".join(f"{k} {d['share']:.3g} (max abs {d['max_abs']:.3g})"
+                        for k, d in rs["drift"].items())
+            + f" of the distance it moved (<= {RESTART_PARAM_SHARE}); a "
+            f"second uninjected run is off by " + ", ".join(
+                f"{k} {d['share']:.3g} (max abs {d['max_abs']:.3g})"
+                for k, d in rs["noise_floor"].items()))
+        log(f"[train] parity at rmat({par['scale']}, {trn['edge_factor']}) "
+            f"({par['vertices']} vertices, {par['edges']} edges): first-step "
+            f"loss {par['loss']:.7f} vs plain {par['plain_loss']:.7f} (rel "
+            f"err {par['loss_rel_err']:.3g} <= {TRAIN_LOSS_RTOL}); grads "
+            f"within rtol {TRAIN_GRAD_TOL[0]}, atol {TRAIN_GRAD_TOL[1]} x "
+            f"max|g| (max abs err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in par["grad_max_abs_err"].items())
+            + ")")
+        log(f"[train] --sampled: {smp['steps']} steps of {smp['seeds']} "
+            f"seeds ({smp['nodes']} nodes, {smp['edges']} edge slots, "
+            f"{smp['valid_edges']} valid in the last): fetch p50 "
+            f"{smp['fetch_p50_s'] * 1e3:.3f} ms, step p50 "
+            f"{smp['step_p50_s'] * 1e3:.3f} ms, total p50 "
+            f"{smp['total_p50_s'] * 1e3:.3f} ms; loss {smp['losses'][0]:.4f} "
+            f"-> {smp['losses'][-1]:.4f}; K1 launches {smp['k1_launches']} "
+            f"= device batches {smp['device_batches']} of "
+            f"{smp['query_batches']}")
+        log(f"[train] main-path launches: K1 {train_k1}, K2 forward "
+            f"{train_k2}, K2 backward {train_k2b}; phase wall "
+            f"{trn['wall_s']:.1f} s")
+
+        # phase 15: K2's backward at the two training shapes
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+        k2g = {}
+        for label, ids_t, n in (
+                ("full_graph", trn.pop("full_graph_ids"), trn["vertices"]),
+                ("sampled", trn.pop("sampled_ids"), smp["nodes"])):
+            r = k2g[label] = measure_segment_sum_grad(
+                ids_t, trn["d_hidden"], n, flush, gen)
+            launches = ("not measured" if r["k2_launches_per_call"] is None
+                        else f"{r['k2_launches_per_call']} K2, "
+                        f"{r['cuda_launches_per_call']} in all")
+            log(f"[kernel] segment_sum backward {label}: grad f32[{r['n']},"
+                f"{r['d']}] gathered by int32[{r['e']}] ({r['valid_edges']} "
+                f"valid, {r['grad_rows_read']} distinct rows): kernel "
+                f"{r['ms']:.4f} ms (CUDA launches per call "
+                f"(profiler): {launches})  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})  "
+                f"{r['gb_per_s']:.1f} GB/s  plain {r['plain_ms']:.4f} ms  "
+                f"library_ms {r['library_ms']:.4f} ({r['library_call']}; "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r["library"].items())
+                + "); bit for bit equal to the plain version")
+        del flush
+        torch.cuda.empty_cache()
+
+        # phase 16: [compile] the load file through the graph compiler,
+        # the hot-set trace through a cold engine on the compiled file;
+        # K1's count zeroed just before and read just after
+        compbin_decode.launches = 0
+        comp = phase_compile(csr, path, device, workdir)
+        comp_k1 = compbin_decode.launches
+        assert comp_k1 == comp["launches"] > 0, (comp_k1, comp["launches"])
+        log(f"[compile] rmat({args.scale}, 16) -> compbin, strategy "
+            f"{comp['strategy']} ({comp['reason']}): {comp['compile_s']:.1f} "
+            f"s, {comp['in_bytes']} -> {comp['out_bytes']} bytes + sidecar "
+            f"{comp['sidecar_bytes']} bytes, {comp['verified_vertices']} "
+            f"vertices self-verified")
+        log(f"[compile] the hot-set trace ({comp['batches']} x "
+            f"{comp['batch']}) mapped through new_of_old, cold engine on the "
+            f"compiled file: p50 {comp['p50_s'] * 1e3:.3f} ms p99 "
+            f"{comp['p99_s'] * 1e3:.3f} ms (original file, [hotset] cold "
+            f"arm: p50 {hot['cold']['p50_s'] * 1e3:.3f} ms p99 "
+            f"{hot['cold']['p99_s'] * 1e3:.3f} ms); PG-Fuse hit rate "
+            f"{comp['pgfuse_hit_rate']:.4f} (original "
+            f"{hot['cold']['pgfuse_hit_rate']:.4f}), blocks touched "
+            f"{comp['blocks_touched']} (original "
+            f"{hot['cold']['blocks_touched']}); K1 launches {comp_k1} = "
+            f"device batches {comp['device_batches']} of "
+            f"{comp['query_batches']}; {comp['ids_checked']} ids mapped back "
+            f"equal the original CSR as int64")
     results.update(load=load, serve=serve, logcsr=logcsr, hotset=hot,
-                   traversal=trav, crossover=cross,
+                   traversal=trav, crossover=cross, train=trn,
+                   segment_sum_backward=k2g, compile=comp,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
                    segment_sum_checks=k2_checks,
                    segment_sum_plan_limits=k2_limits, flash_attention=k3,
@@ -2236,14 +2916,15 @@ def main(argv=None) -> int:
     kernels = [{
         "name": "compbin_decode", "route": "cuda", "source": CUDA_SOURCE,
         "replaces": TPU_KERNEL,
-        "launches": main_path_launches + hot_k1 + trav_k1 + gnn_k1,
+        "launches": (main_path_launches + hot_k1 + trav_k1 + gnn_k1
+                     + train_k1 + comp_k1),
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
         "shape": f"uint8[{k1['n']}*{k1['b']}] -> int32[{k1['n']}]",
     }, {
         "name": "segment_sum", "route": "cuda", "source": K2_CUDA_SOURCE,
-        "replaces": K2_TPU_KERNEL, "launches": gnn_k2,
+        "replaces": K2_TPU_KERNEL, "launches": gnn_k2 + train_k2,
         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
         "ms": k2["layer0"]["ms"], "plain_ms": k2["layer0"]["plain_ms"],
         "bound_ms": k2["layer0"]["bound_ms"],
@@ -2264,6 +2945,27 @@ def main(argv=None) -> int:
             **{key: r[key] for key in ("plain_ms", "bound_ms", "bound_by",
                                        "library_ms")}}
             for label, r in k2.items()},
+    }, {
+        "name": "segment_sum_backward", "route": "cuda",
+        "source": K2_CUDA_SOURCE, "replaces": K2_TPU_KERNEL,
+        "note": ("K2's backward (a gather); the JAX package trains through "
+                 "XLA's segment_sum and has no backward kernel"),
+        "launches": train_k2b, "max_abs_err": 0.0,
+        "ms": k2g["full_graph"]["ms"],
+        "plain_ms": k2g["full_graph"]["plain_ms"],
+        "bound_ms": k2g["full_graph"]["bound_ms"],
+        "bound_by": k2g["full_graph"]["bound_by"],
+        "library_ms": k2g["full_graph"]["library_ms"],
+        "library_call": k2g["full_graph"]["library_call"],
+        "shape": (f"f32[{k2g['full_graph']['n']},{k2g['full_graph']['d']}] "
+                  f"by int32[{k2g['full_graph']['e']}] -> f32["
+                  f"{k2g['full_graph']['e']},{k2g['full_graph']['d']}] "
+                  f"(full-graph layer 1)"),
+        "shapes": {label: {key: r[key] for key in (
+            "e", "d", "n", "valid_edges", "grad_rows_read", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "library", "k2_launches_per_call",
+            "cuda_launches_per_call")} for label, r in k2g.items()},
     }, {
         "name": "flash_attention", "route": "cuda", "source": K3_CUDA_SOURCE,
         "replaces": K3_TPU_KERNEL, "launches": lm_k3,

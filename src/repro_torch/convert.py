@@ -58,6 +58,37 @@ def gcn_params_from_numpy(params: dict, device=None) -> dict:
             for k, v in params.items()}
 
 
+def adamw_state_from_numpy(state: dict, device=None) -> dict:
+    """The JAX package's AdamW state (``{"step", "m", "v"[, "master"]}``
+    with the moments shaped like the params, as numpy arrays, e.g.
+    ``jax.tree_util.tree_map(np.asarray, opt)``) as the port's: ``step``
+    an int32 0-d tensor, every other leaf a float32 tensor, on ``device``
+    (None = the GPU, raises without one)."""
+    device = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+    out = {"step": t(state["step"], np.int32)}
+    for key in ("m", "v", "master"):
+        if key in state:
+            out[key] = {k: t(v, np.float32) for k, v in state[key].items()}
+    return out
+
+
+def adamw_state_to_numpy(state: dict) -> dict:
+    """The port's AdamW state as numpy arrays in the JAX package's
+    structure (:func:`adamw_state_from_numpy`'s inverse), ready for
+    ``jax.numpy.asarray``."""
+    out = {"step": np.asarray(state["step"].detach().cpu().numpy(),
+                              dtype=np.int32)}
+    for key in ("m", "v", "master"):
+        if key in state:
+            out[key] = {k: v.detach().cpu().numpy()
+                        for k, v in state[key].items()}
+    return out
+
+
 def transformer_params_from_numpy(params: dict, cfg, device=None) -> dict:
     """The JAX package's transformer params pytree as numpy (``embed``,
     ``final_norm_scale`` [, ``final_norm_bias``, ``lm_head``] and

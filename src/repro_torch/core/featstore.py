@@ -47,6 +47,7 @@ import struct
 from typing import BinaryIO, Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import pgfuse
 
@@ -60,16 +61,24 @@ DEFAULT_DATA_ALIGN = 64
 _HEADER_STRUCT = struct.Struct("<4sHBBQIIQ")
 assert _HEADER_STRUCT.size == HEADER_SIZE
 
+#: numpy has no bfloat16: code 2's rows are held as their raw 16-bit
+#: patterns in this one-field record dtype (the same bytes on disk as the
+#: JAX package's bfloat16 rows); a tensor views them as
+#: ``torch.bfloat16`` (:func:`rows_to_tensor`)
+BF16_BITS = np.dtype([("bfloat16", "<u2")])
+
 #: dtype codes are part of the wire format — append only, never renumber
 DTYPE_CODES = {0: np.dtype(np.float32), 1: np.dtype(np.float16),
-               3: np.dtype(np.uint8)}
-try:  # bfloat16 needs ml_dtypes; the format slot is reserved either way
-    import ml_dtypes
-
-    DTYPE_CODES[2] = np.dtype(ml_dtypes.bfloat16)
-except ImportError:  # pragma: no cover - environment-dependent
-    pass
+               2: BF16_BITS, 3: np.dtype(np.uint8)}
 _CODE_FOR_DTYPE = {v: k for k, v in DTYPE_CODES.items()}
+
+
+def rows_to_tensor(rows: np.ndarray) -> torch.Tensor:
+    """Rows read from a store as a CPU tensor sharing their memory;
+    bfloat16 rows (:data:`BF16_BITS`) as ``torch.bfloat16``."""
+    if rows.dtype == BF16_BITS:
+        return torch.from_numpy(rows.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(rows)
 
 
 def dtype_code(dtype) -> int:

@@ -53,6 +53,20 @@
 // All indexing of messages and output is 64-bit: vedge[k]*D passes 2^31 at
 // the widths served on larger graphs.
 //
+// The backward (segment_sum_grad_launch, kernel k2_grad) is a gather:
+//
+//     grad_msg[e, d] = grad_out[ids[e], d]   for 0 <= ids[e] < N, else 0
+//
+// The JAX package has no backward kernel (it trains through XLA's own
+// segment_sum), so this one replaces nothing on the TPU side; it keeps
+// the card's one segment sum, the kernel above, on the training path.
+// Bound: memory -- E*D f32 read from grad_out (rows of valid ids only),
+// E*D f32 written and the E ids read once.  One thread per element of
+// the flattened E x D output, so neighbouring threads write neighbouring
+// addresses whatever D is; each id is read in its own width and compared
+// with N in 64 bits, as the forward does.  No arithmetic: the result is
+// the plain version's bit for bit.
+//
 // Plain C interface (loaded with ctypes): the launcher enqueues on the
 // stream it is given, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() so a refused launch surfaces in the caller.
@@ -100,6 +114,23 @@ k2_atomic(const float* __restrict__ msgs, const Id* __restrict__ ids,
         const long long seg = __ldg(ids + e);
         if (seg >= 0 && seg < n)
             atomicAdd(out + seg * d + col, __ldg(msgs + i));
+    }
+}
+
+// Backward gather: out[i] = grad[ids[e] * d + col] where i = e * d + col
+// and ids[e] lies in [0, n), else 0.
+template <typename Id>
+__global__ void __launch_bounds__(kThreads)
+k2_grad(const float* __restrict__ grad, const Id* __restrict__ ids,
+        float* __restrict__ out, long long total, long long d, long long n) {
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                       + threadIdx.x;
+         i < total; i += stride) {
+        const long long e = i / d;
+        const long long col = i - e * d;
+        const long long seg = __ldg(ids + e);
+        out[i] = seg >= 0 && seg < n ? __ldg(grad + seg * d + col) : 0.0f;
     }
 }
 
@@ -358,6 +389,18 @@ int launch(const float* msgs, const Id* ids, float* out, long long e,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename Id>
+int launch_grad(const float* grad, const Id* ids, float* out, long long e,
+                long long d, long long n, cudaStream_t st) {
+    const long long total = e * d;
+    if (total == 0) return 0;
+    long long blocks = (total + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    k2_grad<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        grad, ids, out, total, d, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Sum `msgs` (device pointer, f32[e, d] row-major) into `out` (device
@@ -383,6 +426,27 @@ extern "C" int segment_sum_launch(const void* msgs, const void* ids,
                       ws, st);
     return launch(m, static_cast<const int32_t*>(ids), o, e, d, n, design, ws,
                   st);
+}
+
+// The backward: gather `grad` (device pointer, f32[n, d] row-major) by
+// `ids` (device pointer, e ids: int64 if `ids_64`, else int32) into
+// `grad_msgs` (device pointer, f32[e, d]), zero rows where an id lies
+// outside [0, n), on `stream`.  Every element of `grad_msgs` is written.
+// Returns 0 on success, a cudaError_t otherwise (cudaErrorInvalidValue for
+// a negative size or n >= 2^31).
+extern "C" int segment_sum_grad_launch(const void* grad, const void* ids,
+                                       int ids_64, void* grad_msgs,
+                                       long long e, long long d, long long n,
+                                       void* stream) {
+    if (e < 0 || d < 0 || n < 0 || n >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto* g = static_cast<const float*>(grad);
+    auto* o = static_cast<float*>(grad_msgs);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (ids_64)
+        return launch_grad(g, static_cast<const int64_t*>(ids), o, e, d, n,
+                           st);
+    return launch_grad(g, static_cast<const int32_t*>(ids), o, e, d, n, st);
 }
 
 // Text of a cudaError_t, for the wrapper's exception message.

@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.core import pgfuse, policy
 from repro_torch.core.csr import CSR
+from repro_torch.core.featstore import rows_to_tensor
 from repro_torch.core.paragrapher import GraphHandle, PartitionBuffer
 
 
@@ -370,7 +371,7 @@ class GraphStream:
     def _to_device(self, rows: np.ndarray) -> torch.Tensor:
         """Per-vertex rows (like offsets) to the shard's device, the copy
         finished before the shard is handed on."""
-        out = torch.from_numpy(rows).to(self._off_device)
+        out = rows_to_tensor(rows).to(self._off_device)
         if self._off_device.type == "cuda":
             torch.cuda.current_stream(self._off_device).synchronize()
         return out

@@ -1,2 +1,5 @@
-from repro_torch.kernels.segment_sum.ops import plan, segment_sum  # noqa: F401
-from repro_torch.kernels.segment_sum.ref import segment_sum_ref  # noqa: F401
+from repro_torch.kernels.segment_sum.ops import (plan,  # noqa: F401
+                                                segment_sum,
+                                                segment_sum_backward)
+from repro_torch.kernels.segment_sum.ref import (  # noqa: F401
+    segment_sum_grad_ref, segment_sum_ref)

@@ -1,4 +1,6 @@
-"""Binding of the hand-written CUDA kernel ``csrc/segment_sum.cu``.
+"""Binding of the hand-written CUDA kernels in ``csrc/segment_sum.cu``:
+the segment sum (``segment_sum_launch``) and its backward, a gather
+(``segment_sum_grad_launch``).
 
 The library is built by ``nvcc`` at first use (see
 :mod:`repro_torch.kernels.build`) and called through ``ctypes``; the
@@ -28,9 +30,15 @@ def _launcher():
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        grad = lib.segment_sum_grad_launch
+        grad.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_longlong, ctypes.c_longlong,
+                         ctypes.c_void_p]
+        grad.restype = ctypes.c_int
         lib.segment_sum_error_string.argtypes = [ctypes.c_int]
         lib.segment_sum_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.segment_sum_error_string)
+        _fn = (fn, grad, lib.segment_sum_error_string)
     return _fn
 
 
@@ -43,7 +51,7 @@ def segment_sum_cuda(messages: torch.Tensor, ids: torch.Tensor,
     ``ids`` int32 or int64 [E] (read in their own width) into ``out``
     f32[N, D], all contiguous on the same CUDA device.  The caller has
     checked the arguments; this raises if the launch is refused."""
-    fn, errstr = _launcher()
+    fn, _, errstr = _launcher()
     e, d = messages.shape
     n = out.shape[0]
     with torch.cuda.device(messages.device):
@@ -56,3 +64,25 @@ def segment_sum_cuda(messages: torch.Tensor, ids: torch.Tensor,
         raise RuntimeError(
             f"segment_sum kernel launch failed (E={e}, D={d}, N={n}, "
             f"design={design}): CUDA error {rc}: {errstr(rc).decode()}")
+
+
+def segment_sum_grad_cuda(grad_out: torch.Tensor, ids: torch.Tensor,
+                          grad_msgs: torch.Tensor) -> None:
+    """Launch the backward gather: ``grad_msgs[e] = grad_out[ids[e]]``
+    for ids in ``[0, N)``, zero rows elsewhere; ``grad_out`` f32[N, D],
+    ``ids`` int32 or int64 [E] (read in their own width), ``grad_msgs``
+    f32[E, D] as allocated (every element is written), all contiguous on
+    the same CUDA device.  The caller has checked the arguments; this
+    raises if the launch is refused."""
+    _, fn, errstr = _launcher()
+    e, d = grad_msgs.shape
+    n = grad_out.shape[0]
+    with torch.cuda.device(grad_msgs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(grad_out.data_ptr(), ids.data_ptr(),
+                int(ids.dtype == torch.int64), grad_msgs.data_ptr(), e, d, n,
+                stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"segment_sum backward kernel launch failed (E={e}, D={d}, "
+            f"N={n}): CUDA error {rc}: {errstr(rc).decode()}")

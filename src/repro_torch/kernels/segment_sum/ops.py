@@ -3,7 +3,9 @@
 On the card, :func:`plan` picks one of the kernel's two designs per call
 (``csrc/segment_sum.cu`` describes them): ``rows`` sums each output row
 in edge order and writes it once, ``atomic`` adds every message element
-into a zero-filled output.
+into a zero-filled output.  Where the messages require grad, the call
+goes through a ``torch.autograd.Function`` whose backward is the same
+file's gather kernel (:func:`segment_sum_backward`).
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ import threading
 
 import torch
 
-from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+from repro_torch.kernels.segment_sum.ref import (segment_sum_grad_ref,
+                                                segment_sum_ref)
 
 _launch_lock = threading.Lock()
 
@@ -62,12 +65,14 @@ def _segment_sum(messages, segment_ids, num_segments, design):
         raise ValueError(f"messages on {messages.device} but segment_ids "
                          f"on {segment_ids.device}")
     if not messages.is_cuda:
+        # autograd differentiates the plain version (through index_add_)
         return segment_sum_ref(messages, segment_ids, num_segments)
     if messages.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            "segment_sum has no backward kernel yet: the CUDA path takes "
-            "no tensor that requires grad (run under torch.no_grad() or "
-            "torch.inference_mode())")
+        return _SegmentSum.apply(messages, segment_ids, num_segments, design)
+    return _forward(messages, segment_ids, num_segments, design)
+
+
+def _forward(messages, segment_ids, num_segments, design):
     msgs = messages.to(torch.float32).contiguous()
     # the kernel reads the ids in their own width: a cast to int32 here
     # would wrap an int64 id of 2^32 into segment 0
@@ -92,6 +97,64 @@ def _segment_sum(messages, segment_ids, num_segments, design):
     return out
 
 
+class _SegmentSum(torch.autograd.Function):
+    """K2 on the card with its backward kernel: the forward is the call
+    :func:`plan` designs, the backward gathers ``grad_out`` by the same
+    ids (:func:`segment_sum_backward`), in the messages' dtype."""
+
+    @staticmethod
+    def forward(ctx, messages, segment_ids, num_segments, design):
+        ctx.save_for_backward(segment_ids)
+        ctx.num_segments = num_segments
+        ctx.msg_dtype = messages.dtype
+        return _forward(messages, segment_ids, num_segments, design)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        grad = segment_sum_backward(grad_out, ids, ctx.num_segments)
+        return grad.to(ctx.msg_dtype), None, None, None
+
+
+def segment_sum_backward(grad_out: torch.Tensor, segment_ids: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """The gradient of :func:`segment_sum` with respect to its messages:
+    ``grad_out[segment_ids[e]]`` where the id lies in
+    ``[0, num_segments)``, a zero row elsewhere, as float32[E, D].
+
+    ``grad_out`` may be any float32-castable [num_segments, D] view
+    (autograd hands over expanded or strided ones); it is made contiguous
+    first.  A CUDA tensor goes through the gather kernel or raises; a CPU
+    tensor takes the plain version.  ``segment_sum.grad_launches`` counts
+    calls that launched the kernel (E*D > 0) and nothing else.
+    """
+    if grad_out.ndim != 2 or segment_ids.ndim != 1:
+        raise ValueError("grad_out must be [N, D], segment_ids [E]")
+    if grad_out.shape[0] != num_segments:
+        raise ValueError(f"grad_out has {grad_out.shape[0]} rows for "
+                         f"{num_segments} segments")
+    if segment_ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_ids must be int32 or int64, got "
+                        f"{segment_ids.dtype}")
+    if segment_ids.device != grad_out.device:
+        raise ValueError(f"grad_out on {grad_out.device} but segment_ids "
+                         f"on {segment_ids.device}")
+    if not grad_out.is_cuda:
+        return segment_sum_grad_ref(grad_out, segment_ids, num_segments)
+    grad = grad_out.to(torch.float32).contiguous()
+    ids = segment_ids.contiguous()
+    out = torch.empty(ids.shape[0], grad.shape[1], dtype=torch.float32,
+                      device=grad.device)
+    if out.numel():
+        from repro_torch.kernels.segment_sum.kernel import \
+            segment_sum_grad_cuda
+        segment_sum_grad_cuda(grad, ids, out)
+        with _launch_lock:
+            segment_sum.grad_launches += 1
+    return out
+
+
 def segment_sum(messages: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Segment-sum ``messages[E, D]`` by ``segment_ids[E]`` into
@@ -109,14 +172,19 @@ def segment_sum(messages: torch.Tensor, segment_ids: torch.Tensor,
     with atomics, so the f32 sums depend on the order of the adds (within
     rounding of the plain version).
 
-    There is no backward yet: a CUDA tensor that requires grad raises.
-    ``segment_sum.launches`` counts calls that launched the kernel (one
-    per call, whatever CUDA kernels the design runs) and nothing else.
+    Differentiable with respect to ``messages``: on the card the
+    backward is the gather kernel (:func:`segment_sum_backward`), on the
+    CPU autograd differentiates the plain version.
+    ``segment_sum.launches`` counts calls that launched the forward
+    kernel (one per call, whatever CUDA kernels the design runs),
+    ``segment_sum.grad_launches`` the backward's launches, and nothing
+    else adds to either.
     """
     return _segment_sum(messages, segment_ids, num_segments, None)
 
 
 segment_sum.launches = 0
+segment_sum.grad_launches = 0
 
 
 def _segment_sum_design(messages: torch.Tensor, segment_ids: torch.Tensor,

@@ -24,3 +24,20 @@ def segment_sum_ref(messages: torch.Tensor, segment_ids: torch.Tensor,
     ids = torch.where(valid, segment_ids, 0).long()
     msgs = torch.where(valid[:, None], messages.float(), 0.0)
     return out.index_add_(0, ids, msgs)
+
+
+def segment_sum_grad_ref(grad_out: torch.Tensor, segment_ids: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """The backward of :func:`segment_sum_ref` with respect to the
+    messages: ``grad_out[segment_ids[e]]`` for ids in
+    ``[0, num_segments)``, a zero row elsewhere.
+
+    grad_out: float32[N, D]; segment_ids: int[E]; returns float32[E, D]
+    on grad_out's device.
+    """
+    d = grad_out.shape[1]
+    out = torch.zeros(segment_ids.shape[0], d, dtype=torch.float32,
+                      device=grad_out.device)
+    valid = (segment_ids >= 0) & (segment_ids < num_segments)
+    out[valid] = grad_out.float()[segment_ids[valid].long()]
+    return out

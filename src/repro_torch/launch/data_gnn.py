@@ -1,10 +1,12 @@
-"""Convert sampled blocks / generated graphs into model batch dicts.
+"""Convert sampled blocks / generated graphs / streamed shards into
+model batch dicts of tensors.
 
-The serving side of the JAX package's module: assets, the block's edge
-index, the store-gathered batch and its one-pass transfer to the device.
-The training-side functions (``streamed_graph_batch``,
-``shards_to_edge_index``, ``full_graph_batch``, ...) wait for the
-training slice.
+Serving: assets, the block's edge index, the store-gathered batch and
+its one-pass transfer to the device.  Training: the sampled block with
+stand-in features (:func:`block_to_batch`), the full-graph batch built
+on the device from streamed shards (:func:`streamed_graph_batch`), and
+the one from an in-memory CSR (:func:`full_graph_batch`).  The JAX
+package's meshgraphnet / dimenet fields come with those models.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.core.csr import CSR
 from repro_torch.graph.sampler import SampledBlock
 from repro_torch.kernels.utils import resolve_device
 
@@ -75,6 +78,39 @@ def block_to_edges(block: SampledBlock) -> tuple[np.ndarray, np.ndarray, int]:
     return (np.concatenate(srcs), np.concatenate(dsts), int(offsets[-1]))
 
 
+def block_features(block: SampledBlock, d_feat: int, rng) -> np.ndarray:
+    """Feature matrix for all block nodes (hashed-random stand-in: real
+    deployments gather rows from the feature store through PG-Fuse)."""
+    nodes = np.concatenate(block.layer_nodes)
+    feats = rng.standard_normal((len(nodes), d_feat)).astype(np.float32)
+    return np.where((nodes >= 0)[:, None], feats, 0)
+
+
+def block_to_batch(arch_id: str, cfg, block: SampledBlock, rng, *,
+                   device=None) -> dict:
+    """Training batch from a sampled block with stand-in features and
+    labels drawn from ``rng`` as the JAX package draws them, on
+    ``device`` (None = the GPU, raises without one)."""
+    src, dst, n = block_to_edges(block)
+    d_in = getattr(cfg, "d_in", getattr(cfg, "d_node_in", 16))
+    x = block_features(block, d_in, rng)
+    batch = {
+        "x": x,
+        "edge_src": src.astype(np.int32),
+        "edge_dst": dst.astype(np.int32),
+    }
+    n_seeds = len(block.seeds)
+    if arch_id in ("gcn-cora", "pna"):
+        n_classes = cfg.n_classes
+        labels = np.full(n, -1, np.int64)
+        labels[:n_seeds] = rng.integers(0, n_classes, n_seeds)
+        mask = np.zeros(n, bool)
+        mask[:n_seeds] = True
+        batch["labels"] = labels
+        batch["label_mask"] = mask
+    return device_batch(batch, device)
+
+
 def device_batch(np_batch: dict, device=None) -> dict:
     """Ship a whole numpy batch dict to ``device`` in one pass: one
     ``torch.from_numpy(...).to(device)`` per tensor, nothing else
@@ -129,3 +165,151 @@ def sampled_store_batch(arch_id: str, cfg, block: SampledBlock, feats,
     """
     return device_batch(sampled_host_batch(arch_id, cfg, block, feats,
                                            labels), device)
+
+
+def shards_to_edge_index(shards) -> tuple:
+    """Streamed device shards -> (edge_src, edge_dst) int32 ON the shards'
+    device.
+
+    The whole point of the streaming loader: the neighbor IDs never exist
+    decoded on the host, so the edge index is derived where it is
+    consumed.  Row IDs are expanded from each shard's offsets with the
+    shard's edge count as the output size, so nothing waits on the
+    device."""
+    srcs, dsts = [], []
+    for s in sorted(shards, key=lambda sh: sh.v0):
+        dev = s.neighbors.device
+        deg = torch.diff(s.offsets.to(dev))
+        srcs.append(torch.repeat_interleave(
+            torch.arange(s.v0, s.v1, dtype=torch.int32, device=dev), deg,
+            output_size=s.n_edges))
+        dsts.append(s.neighbors.to(torch.int32))
+    if not srcs:
+        z = torch.zeros(0, dtype=torch.int32)
+        return z, z
+    return torch.cat(srcs), torch.cat(dsts)
+
+
+def shards_to_features(shards) -> "torch.Tensor | None":
+    """Streamed per-shard feature rows -> one (n, d) device matrix.
+
+    Returns None when the shards carry no features (no store attached).
+    A MIX of featured and feature-less shards is an error: it means some
+    host streamed the feature store and some did not, and training would
+    silently run on garbage rows for the missing range.
+    """
+    shards = sorted(shards, key=lambda s: s.v0)
+    have = [s.x is not None for s in shards]
+    if not any(have):
+        return None
+    if not all(have):
+        missing = [(s.v0, s.v1) for s, h in zip(shards, have) if not h]
+        raise ValueError(
+            f"shards {missing} carry no feature rows but others do; every "
+            f"host must stream the same feature store")
+    return torch.cat([s.x for s in shards])
+
+
+def shards_to_labels(shards) -> "tuple | None":
+    """Streamed label-family rows -> (labels int32[n], mask bool[n]) on
+    device, or None when no label store was attached.  Mixed
+    labeled/unlabeled shards are an error for the same reason mixed
+    feature shards are (see :func:`shards_to_features`)."""
+    shards = sorted(shards, key=lambda s: s.v0)
+    have = [s.y is not None for s in shards]
+    if not any(have):
+        return None
+    if not all(have):
+        missing = [(s.v0, s.v1) for s, h in zip(shards, have) if not h]
+        raise ValueError(
+            f"shards {missing} carry no label rows but others do; every "
+            f"host must stream the same label store")
+    y = torch.cat([s.y for s in shards])
+    return y[:, 0].to(torch.int32), y[:, 1].to(torch.bool)
+
+
+def streamed_graph_batch(arch_id: str, cfg, shards, rng, *,
+                         n_classes: int = 7,
+                         n_vertices: int | None = None) -> dict:
+    """Full-graph training dict straight from streamed device shards
+    (the device-resident sibling of :func:`full_graph_batch`), on the
+    shards' device.
+
+    ``shards`` may come from one stream or from every host of a
+    multi-host load (``data/multihost.py::all_shards``); full-graph
+    training needs the WHOLE vertex range, so a gap in coverage (a host's
+    shards missing) is an error, not a silently smaller graph.  Pass
+    ``n_vertices`` (the graph's true vertex count, e.g.
+    ``HostResult.n_vertices``) to also reject a missing TAIL — without it
+    only interior gaps are detectable.
+
+    When the stream carried a feature store (``feature_path=``), ``x``
+    is the shards' real feature rows — storage -> PG-Fuse -> device with
+    zero host synthesis; the random stand-in is drawn from ``rng`` only
+    for feature-less streams.  When it also carried the label/mask column
+    family (``label_path=``), ``labels``/``label_mask`` come off storage
+    too and the batch holds ZERO synthetic tensors.
+    """
+    shards = sorted(shards, key=lambda s: s.v0)
+    expect = 0
+    for s in shards:
+        if s.v0 != expect:
+            raise ValueError(
+                f"streamed shards do not cover the graph: gap/overlap at "
+                f"vertex {expect} (next shard starts at {s.v0}); full-graph "
+                f"training needs every host's shards")
+        expect = s.v1
+    if n_vertices is not None and expect != n_vertices:
+        raise ValueError(
+            f"streamed shards cover only [0, {expect}) of {n_vertices} "
+            f"vertices (trailing host missing); full-graph training needs "
+            f"every host's shards")
+    src, dst = shards_to_edge_index(shards)
+    dev = src.device
+    n = expect  # the coverage loop proved the shards tile [0, expect)
+    d_in = getattr(cfg, "d_in", getattr(cfg, "d_node_in", 16))
+    x = shards_to_features(shards)
+    if x is not None and int(x.shape[1]) != d_in:
+        raise ValueError(
+            f"feature store rows have d={int(x.shape[1])} but the model "
+            f"expects d_in={d_in}")
+    if x is None:
+        x = torch.from_numpy(
+            rng.standard_normal((n, d_in)).astype(np.float32)).to(dev)
+    batch = {
+        "x": x.to(torch.float32),
+        "edge_src": src,
+        "edge_dst": dst,
+    }
+    if arch_id in ("gcn-cora", "pna"):
+        lab = shards_to_labels(shards)
+        if lab is not None:
+            top = int(lab[0].max()) if lab[0].numel() else -1
+            if top >= n_classes:
+                raise ValueError(
+                    f"label store holds class {top} but the model expects "
+                    f"n_classes={n_classes}")
+            batch["labels"], batch["label_mask"] = lab
+        else:
+            batch["labels"] = torch.from_numpy(
+                rng.integers(0, n_classes, n)).to(dev)
+            batch["label_mask"] = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+    return batch
+
+
+def full_graph_batch(arch_id: str, cfg, csr: CSR, rng, *,
+                     n_classes: int = 7, device=None) -> dict:
+    """Full-batch training dict from an in-memory CSR, on ``device``
+    (None = the GPU, raises without one)."""
+    src, dst = csr.edge_index()
+    n = csr.n_vertices
+    d_in = getattr(cfg, "d_in", getattr(cfg, "d_node_in", 16))
+    batch = {
+        "x": rng.standard_normal((n, d_in)).astype(np.float32),
+        "edge_src": src.astype(np.int32),
+        "edge_dst": dst.astype(np.int32),
+    }
+    if arch_id in ("gcn-cora", "pna"):
+        batch["labels"] = rng.integers(0, n_classes, n)
+        batch["label_mask"] = rng.random(n) < 0.3
+    return device_batch(batch, device)

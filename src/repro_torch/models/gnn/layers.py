@@ -4,8 +4,9 @@ Edge lists are padded with ``-1`` (dropped by masking); an id at or
 above ``n_nodes`` is dropped too, as XLA's segment sum does in the JAX
 package.  Every segment sum here goes through
 :func:`repro_torch.kernels.segment_sum.segment_sum`: on a CUDA tensor
-that is the hand-written kernel for every ``n_nodes``, on a CPU tensor
-its plain version.  ``scatter_max/min/std`` wait for PNA.
+that is the hand-written kernel for every ``n_nodes`` (and, where the
+messages require grad, its backward kernel), on a CPU tensor its plain
+version.  ``scatter_max/min/std`` wait for PNA.
 """
 
 from __future__ import annotations

@@ -125,3 +125,29 @@ def test_graph_converters_write_the_same_files(tmp_path):
     np.testing.assert_array_equal(
         port_features.synthesize_separable_labels(x, 6, seed=2),
         ref_features.synthesize_separable_labels(x, 6, seed=2))
+
+
+def test_bfloat16_rows_match_the_reference_without_ml_dtypes(tmp_path):
+    """Code 2 (bfloat16): the port holds the rows as raw 16-bit patterns
+    (``BF16_BITS``, no ``ml_dtypes``); the bytes it writes equal the JAX
+    package's for the same values, each package reads the other's file,
+    and ``rows_to_tensor`` views them as ``torch.bfloat16``."""
+    import ml_dtypes
+    import torch
+
+    x = np.random.default_rng(4).standard_normal((6, 5)).astype(
+        ml_dtypes.bfloat16)
+    bits = x.view(np.uint16).view(port_fst.BF16_BITS)
+    ref_buf, port_buf = io.BytesIO(), io.BytesIO()
+    ref_fst.write_featstore(ref_buf, x, data_align=64)
+    port_fst.write_featstore(port_buf, bits, data_align=64)
+    assert port_buf.getvalue() == ref_buf.getvalue()
+    assert port_fst.dtype_code(port_fst.BF16_BITS) == 2
+    p = tmp_path / "bf16.fst"
+    p.write_bytes(ref_buf.getvalue())
+    got = port_fst.read_featstore(str(p))
+    assert got.dtype == port_fst.BF16_BITS and got.shape == (6, 5)
+    np.testing.assert_array_equal(got.view(np.uint16), x.view(np.uint16))
+    t = port_fst.rows_to_tensor(got)
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), x.astype(np.float32))

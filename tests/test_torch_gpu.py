@@ -6,8 +6,10 @@ tests/test_torch_gpu.py`` (the first test of each kernel builds it with
 nvcc).  Integer results: tolerance ZERO (``torch.equal``); the segment
 sum: f32 rtol 1e-5 / atol 1e-4, bf16 inputs 2e-2 / 2e-1 (atomics add in
 no fixed order; the rows design on sorted ids is held bit for bit to
-itself and to the CPU plain version); flash attention: f32 2e-4, bf16
-2e-2 (rtol and atol, the JAX package's own kernel tolerances)."""
+itself and to the CPU plain version; its backward, a gather, bit for
+bit); flash attention: f32 2e-4, bf16 2e-2 (rtol and atol, the JAX
+package's own kernel tolerances); a GCN training step: chip_smoke's
+``TRAIN_LOSS_RTOL`` / ``TRAIN_GRAD_TOL`` against the plain path."""
 
 import importlib.util
 import pathlib
@@ -25,7 +27,10 @@ from repro_torch.kernels.compbin_decode import (compbin_decode,
 from repro_torch.kernels.flash_attention import (attention_bshd,
                                                  attention_ref,
                                                  flash_attention, plan)
-from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
+from repro_torch.kernels.segment_sum import (segment_sum,
+                                             segment_sum_backward,
+                                             segment_sum_grad_ref,
+                                             segment_sum_ref)
 from repro_torch.kernels.segment_sum import plan as k2_plan
 from repro_torch.kernels.segment_sum.ops import _segment_sum_design
 from repro_torch.query import NeighborQueryEngine
@@ -96,8 +101,16 @@ def test_segment_sum_kernel_equals_plain_version(cuda, E, D, N, dtype):
     torch.testing.assert_close(out, segment_sum_ref(msgs, ids, N),
                                rtol=tol, atol=tol * 10)
     assert not segment_sum(msgs[:0], ids[:0], N).any()
-    with pytest.raises(RuntimeError, match="no backward"):
-        segment_sum(msgs.detach().float().requires_grad_(), ids, N)
+    # a tensor that requires grad goes through the forward kernel and the
+    # backward kernel, which equals the plain version's gradient
+    m = msgs.detach().float().requires_grad_()
+    before = segment_sum.launches, segment_sum.grad_launches
+    segment_sum(m, ids, N).sum().backward()
+    torch.cuda.synchronize()
+    assert (segment_sum.launches, segment_sum.grad_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(m.grad, segment_sum_grad_ref(
+        torch.ones(N, D, device=cuda), ids, N))
 
 
 @pytest.fixture(scope="module")
@@ -187,6 +200,92 @@ def test_segment_sum_makes_no_host_sync(cuda, smoke, design, ids_dtype):
         torch.cuda.set_sync_debug_mode(0)
     torch.testing.assert_close(out, segment_sum_ref(msgs, ids, n),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", K2_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_backward_on_every_layout(cuda, smoke, kind, dtype):
+    """K2's backward bit for bit against its plain version on
+    ``chip_smoke.k2_layout``'s layouts (int64 wide ids dropped, never
+    wrapped): the kernel entry, autograd through ``segment_sum`` (the
+    grad in the messages' dtype) and an expanded ``grad_out``; one count
+    of ``segment_sum.grad_launches`` per call with work."""
+    rng = np.random.default_rng(100 + K2_LAYOUTS.index(kind))
+    ids_np, n, d, _ = smoke.k2_layout(kind, rng)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    assert smoke.check_k2_backward(ids, n, d, dtype, rng, kind) == \
+        (3 if n and d else 2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_segment_sum_backward_makes_no_host_sync(cuda, smoke, ids_dtype):
+    ids_np, n = smoke.served_tree_ids(64, seed=6)
+    ids = torch.from_numpy(ids_np).to(cuda, ids_dtype)
+    msgs = torch.randn(ids_np.size, 16, device=cuda, requires_grad=True)
+    grad_out = torch.randn(n, 16, device=cuda)
+    segment_sum_backward(grad_out, ids, n)                # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = segment_sum_backward(grad_out, ids, n)
+        segment_sum(msgs, ids, n).backward(grad_out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = segment_sum_grad_ref(grad_out, ids, n)
+    assert torch.equal(got, want) and torch.equal(msgs.grad, want)
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_segment_sum_gradient_agrees_with_the_plain_autograd(cuda, smoke,
+                                                             ids_dtype):
+    """gradcheck-style: the gradient of a random linear functional of the
+    kernel's sum equals autograd of the plain version bit for bit, and
+    satisfies the adjoint identity <S m, g> = <m, S^T g> in float64."""
+    ids_np, n = smoke.served_tree_ids(128, seed=8)
+    ids = torch.from_numpy(ids_np).to(cuda, ids_dtype)
+    m = torch.randn(ids_np.size, 24, device=cuda, dtype=torch.float64)
+    w = torch.randn(n, 24, device=cuda)
+    mk = m.float().requires_grad_()
+    mp = m.float().requires_grad_()
+    (segment_sum(mk, ids, n) * w).sum().backward()
+    (segment_sum_ref(mp, ids, n) * w).sum().backward()
+    assert torch.equal(mk.grad, mp.grad)
+    lhs = (segment_sum_ref(m, ids, n).double() * w.double()).sum()
+    rhs = (m * segment_sum_backward(w, ids, n).double()).sum()
+    torch.testing.assert_close(lhs, rhs, rtol=1e-5, atol=1e-5)
+
+
+def test_gcn_full_graph_step_on_the_card(cuda, smoke, tmp_path):
+    """One --full-graph training step (2 simulated hosts, gcn-cora
+    reduced): K2's forward launches n_layers + 1 times and its backward
+    once; the loss and every gradient within chip_smoke's training
+    tolerance of the plain path on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as tr
+    from repro_torch.models.gnn import gcn
+
+    cfg = get_arch("gcn-cora").make_reduced()
+    fb = tr._gnn_full_graph_batches("gcn-cora", cfg, str(tmp_path), True, 2,
+                                    device=cuda)
+    params = gcn.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+
+    def loss_grads():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = gcn.loss_fn(p, fb.batch, cfg)
+        return float(loss.detach()), dict(zip(p, torch.autograd.grad(
+            loss, list(p.values()))))
+
+    before = segment_sum.launches, segment_sum.grad_launches
+    loss_k, grads_k = loss_grads()
+    assert (segment_sum.launches - before[0],
+            segment_sum.grad_launches - before[1]) == (cfg.n_layers + 1, 1)
+    with smoke.plain_segment_sum():
+        loss_p, grads_p = loss_grads()
+    assert abs(loss_k - loss_p) <= smoke.TRAIN_LOSS_RTOL * abs(loss_p)
+    for k in grads_p:
+        smoke.train_close(grads_k[k], grads_p[k], k)
 
 
 def test_gcn_serving_goes_through_both_kernels(cuda, tmp_path):

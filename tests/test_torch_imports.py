@@ -53,7 +53,9 @@ def test_every_slice_module_is_present():
                  "configs.smollm_360m", "configs.qwen2_1_5b",
                  "configs.stablelm_1_6b", "launch.model_flops",
                  "query.hotset", "query.traversal", "query.loadgen",
-                 "query.sharded"):
+                 "query.sharded", "optim.adamw", "checkpoint.checkpointer",
+                 "distributed.fault_tolerance", "data.multihost",
+                 "launch.train", "graph.reorder", "launch.compile_graph"):
         assert f"repro_torch.{want}" in mods, want
     for kernel in ("compbin_decode", "segment_sum", "flash_attention"):
         assert (SRC / "repro_torch" / "csrc" / f"{kernel}.cu").is_file()
@@ -68,7 +70,7 @@ def test_importing_the_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
-        "m.startswith('repro.'))\n"
+        "m.startswith('repro.') or m == 'ml_dtypes')\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
         "print('imported', len(mods))\n")
@@ -83,7 +85,7 @@ def test_no_source_file_of_the_port_names_jax_imports():
     for path in (SRC / "repro_torch").rglob("*.py"):
         text = path.read_text()
         for needle in ("import jax", "from jax", "import repro\n",
-                       "from repro ", "from repro."):
+                       "from repro ", "from repro.", "ml_dtypes"):
             assert needle not in text, (path, needle)
 
 
@@ -112,6 +114,16 @@ def test_device_none_raises_without_cuda(tmp_path):
         device_batch({"x": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gcn_params_from_numpy({"w0": np.zeros((2, 2), np.float32)})
+    from repro_torch.convert import adamw_state_from_numpy
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        adamw_state_from_numpy({"step": np.int32(0), "m": {}, "v": {}})
+    from repro_torch.data.multihost import simulate_hosts
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_hosts(path, 2)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train("gcn-cora", reduced=True, steps=1,
+                    workdir=str(tmp_path / "train"))
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import make_gnn_server
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -139,6 +139,17 @@ def test_segment_sum_bound(smoke):
     assert smoke.k2_bound_ms(30720, 1, 31744, 0)[1] == "bytes"
 
 
+def test_segment_sum_backward_bound_reads_each_grad_row_once(smoke):
+    # the full-graph shape: grad f32[262144, 16] by 3,939,466 int32 ids
+    # that name every row; grad_out read once, not once an edge
+    ms, by = smoke.k2_grad_bound_ms(3_939_466, 16, 262_144, 4)
+    assert by == "bytes"
+    assert ms == pytest.approx(284_660_904 / 3.35e12 * 1e3)
+    # int64 ids read 8 bytes each; no distinct row read, only writes
+    assert smoke.k2_grad_bound_ms(10, 16, 0, 8)[0] == pytest.approx(
+        (4 * 10 * 16 + 10 * 8) / 3.35e12 * 1e3)
+
+
 def test_segment_sum_checks_on_cpu(smoke):
     out = smoke.phase_segment_sum_checks("cpu", n_seeds=64)
     # (6 sweep shapes x 2 id ranges + 9 layouts) x f32/bf16 x (atomic,
@@ -425,3 +436,182 @@ ptxas info    : Used 32 registers, used 0 barriers
     rows = smoke.k3_instantiations(log, "/nonexistent/nvcc")
     assert [(r["registers"], r["spill_stores"], r["spill_loads"],
              r["smem_bytes"]) for r in rows] == [(118, 8, 4, 65), (32, 0, 0, 0)]
+
+
+# ---------------------------------------------------------------------------
+# [train] and [compile], and K2's backward checks, with planted faults
+# ---------------------------------------------------------------------------
+
+TRAIN_KW = dict(scale=10, edge_factor=8, parity_scale=9, reduced=True,
+                sampled_seeds=256, sampled_steps=4)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: a CPU GEMM's sum order then no longer depends
+    on how many threads the BLAS picks under load, so two runs of the
+    same steps agree bit for bit."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_train_phase_on_cpu(smoke, tmp_path, one_thread):
+    out = smoke.phase_train("cpu", str(tmp_path), **TRAIN_KW)
+    assert out["vertices"] == 1024 and out["hosts"] == 2
+    assert len(out["losses"]) == 10 and out["losses"][-1] < out["losses"][0]
+    books = out["stats_hosts_vs_one"]
+    for k in smoke.STREAM_DATA_COUNTERS:
+        assert books[k][0] == books[k][1]
+    assert books["host_decode_bytes"] == (0, 0)
+    assert out["restart"]["steps_replayed"] == 1
+    rs = out["restart"]                  # the CPU is deterministic
+    assert rs["loss_rel_err"] == 0.0
+    assert all(d["max_abs"] == 0.0 for d in rs["drift"].values())
+    assert all(d["max_abs"] == 0.0 for d in rs["noise_floor"].values())
+    assert out["parity"]["loss_rel_err"] == 0.0
+    # a CPU tensor never launches a kernel
+    assert out["k1_launches"] == out["k2_launches"] == \
+        out["k2_grad_launches"] == 0 and out["k2_per_step"] == [0, 0]
+    assert out["sampled"]["device_batches"] > 0
+    assert out["full_graph_ids"].numel() == out["edges"]
+
+
+def test_k2_backward_checks_on_cpu(smoke):
+    out = smoke.phase_segment_sum_checks("cpu", n_seeds=32)
+    # 21 cases x f32/bf16, 3 checks each (the kernel entry, autograd, an
+    # expanded grad_out) but for E = 0, where the CPU's plain version
+    # returns zeros that autograd cannot differentiate
+    assert out["backward_checks"] == (6 * 2 + len(smoke.K2_LAYOUTS)) * 2 \
+        * 3 - 2 == 124
+
+
+def _flip_one_grad(grad_out, ids, n):
+    from repro_torch.kernels.segment_sum import segment_sum_grad_ref
+    out = segment_sum_grad_ref(grad_out, ids, n)
+    if out.numel():
+        out.view(-1)[out.numel() // 2] += 1.0
+    return out
+
+
+def _wrap_wide_ids(grad_out, ids, n):
+    """The wide-id fault on the backward: ids narrowed to int32, so an
+    id of 2^32 gathers row 0 instead of giving a zero row."""
+    from repro_torch.kernels.segment_sum import segment_sum_grad_ref
+    return segment_sum_grad_ref(grad_out, ids.to(torch.int32), n)
+
+
+@pytest.mark.parametrize("fault,match", [
+    (_flip_one_grad, r"segment_sum backward on sweep E=64 D=16 N=4"),
+    (_wrap_wide_ids, r"segment_sum backward on wide"),
+])
+def test_k2_backward_check_detects_a_planted_fault(smoke, monkeypatch,
+                                                   fault, match):
+    monkeypatch.setattr(smoke, "segment_sum_backward", fault)
+    with pytest.raises(AssertionError, match=match):
+        smoke.phase_segment_sum_checks("cpu", n_seeds=32)
+
+
+def _lost_restore(real, ckpt_dir, tree_like, **kw):
+    """The checkpoint lost: the state handed in comes back."""
+    step, _ = real(ckpt_dir, tree_like, **kw)
+    return step, tree_like
+
+
+def _lost_params(real, ckpt_dir, tree_like, **kw):
+    """Only the optimizer state restored; the params stay a step ahead."""
+    step, got = real(ckpt_dir, tree_like, **kw)
+    return step, {**got, "params": tree_like["params"]}
+
+
+@pytest.mark.parametrize("fault", [_lost_restore, _lost_params])
+def test_train_restart_check_detects_a_lost_restore(smoke, monkeypatch,
+                                                    tmp_path, fault):
+    """A restore that loses the checkpoint leaves the run an AdamW step
+    ahead: the check must see it."""
+    import functools
+
+    import repro_torch.checkpoint as ck
+    monkeypatch.setattr(ck, "restore_latest",
+                        functools.partial(fault, ck.restore_latest))
+    with pytest.raises(AssertionError, match="not the one it checkpointed"):
+        smoke.phase_train("cpu", str(tmp_path), **TRAIN_KW)
+
+
+def _gcn_state(seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return {"params": {"w0": torch.randn(6, 3, generator=g) * scale,
+                       "b0": torch.randn(3, generator=g) * scale}}
+
+
+def test_restart_check_catches_a_run_a_step_off(smoke):
+    """The parts of ``check_restart`` the CPU run cannot reach with a
+    planted restore fault: a loss trajectory one step off, and final
+    params off by more than the share of the distance moved."""
+    start = _gcn_state(0)["params"]
+    clean = {"params": {k: v + 1.0 for k, v in start.items()}}
+    near = {"params": {k: v + 1.0 + 1e-4 for k, v in start.items()}}
+    far = {"params": {k: v + 1.1 for k, v in start.items()}}
+    st = _gcn_state(3)
+    losses = [1.90, 1.89, 1.88]
+    out = smoke.check_restart(st, st, losses, losses, near, clean, start)
+    assert out["loss_rel_err"] == 0.0
+    assert all(d["share"] < 1e-3 for d in out["drift"].values())
+    with pytest.raises(AssertionError, match="losses after the restore"):
+        smoke.check_restart(st, st, losses[1:] + [1.87], losses, near,
+                            clean, start)
+    with pytest.raises(AssertionError, match="restored param w0"):
+        smoke.check_restart(st, st, losses, losses, far, clean, start)
+    with pytest.raises(AssertionError, match="not the one it checkpointed"):
+        smoke.check_restart(st, _gcn_state(4), losses, losses, near, clean,
+                            start)
+
+
+def test_train_parity_check_detects_a_dropped_edge(smoke, monkeypatch,
+                                                   tmp_path):
+    """The kernel path losing one edge (the plain path keeps it) must
+    fail the first-step comparison."""
+    from repro_torch.kernels.segment_sum import segment_sum_ref
+    from repro_torch.models.gnn import layers
+
+    def dropping(msgs, ids, n):
+        ids = ids.clone()
+        ids[-1] = -1
+        return segment_sum_ref(msgs, ids, n)
+
+    monkeypatch.setattr(layers, "segment_sum", dropping)
+    with pytest.raises(AssertionError, match="first-step"):
+        smoke.phase_train("cpu", str(tmp_path), **TRAIN_KW)
+
+
+def test_compile_phase_on_cpu(smoke, small):
+    csr, path, workdir = small
+    out = smoke.phase_compile(csr, path, "cpu", workdir, n_batches=4,
+                              batch=256)
+    assert out["strategy"] == "bfs" and out["out_bytes"] > 0
+    assert out["ids_checked"] > 0 and out["launches"] == 0
+    assert out["query_batches"] == 4
+    assert 0.0 <= out["pgfuse_hit_rate"] <= 1.0 and out["blocks_touched"] > 0
+
+
+def test_compile_check_detects_a_wrong_mapped_back_answer(smoke, small,
+                                                          monkeypatch):
+    from repro_torch.graph import reorder
+    csr, path, workdir = small
+    real = reorder.read_sidecar
+
+    def swapped(p):
+        perm = real(p).copy()
+        hub = int(np.argmax(np.diff(csr.offsets)))
+        j = int(np.flatnonzero(perm == hub)[0])
+        k = (j + 1) % perm.size
+        perm[[j, k]] = perm[[k, j]]
+        return perm
+
+    monkeypatch.setattr(reorder, "read_sidecar", swapped)
+    with pytest.raises(AssertionError, match="differ"):
+        smoke.phase_compile(csr, path, "cpu", workdir, n_batches=2,
+                            batch=256)
