@@ -10,7 +10,8 @@ holds each kernel against its plain PyTorch version on the card (the
 decode bit for bit; the segment sum's two designs -- rows, atomic -- to
 f32 rounding on the JAX sweep's shapes and nine id layouts, and rows
 bit for bit to itself on the served ids; the segment sum's backward, a
-gather, bit for bit on the same cases; flash attention's three
+gather, bit for bit on the same cases at every vector width the layout
+allows; flash attention's three
 designs -- tensor-core prefill, split decode, f32 FMA -- to the JAX
 package's kernel tolerances),
 drives the port's main paths through the library entry points -- load
@@ -28,7 +29,8 @@ bf16 with every attention call held to f64), train gcn-cora at full
 width (the full graph streamed by two simulated hosts, K2's forward and
 its backward kernel, AdamW, a restart from a checkpoint after an injected
 failure, the first step held to the plain path; then sampled minibatches
-through the query engine), and compile the load file with the graph
+through the query engine; then both K2 designs and K2's backward timed at
+the training shapes), and compile the load file with the graph
 compiler and serve the hot-set trace from the compiled file -- checks
 every result against an independent plain computation, and prints what
 it measured.
@@ -50,6 +52,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -84,7 +87,8 @@ from repro_torch.kernels.segment_sum import plan as k2_plan  # noqa: E402
 from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum, segment_sum_backward, segment_sum_grad_ref, segment_sum_ref)
 from repro_torch.kernels.segment_sum.ops import (  # noqa: E402
-    DESIGNS as K2_DESIGNS, _segment_sum_design)
+    DESIGNS as K2_DESIGNS, GRAD_VECS, _segment_sum_backward_vec,
+    _segment_sum_design, grad_vector_width)
 from repro_torch.query import NeighborQueryEngine  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the roofline the
@@ -1365,20 +1369,29 @@ def check_k2_determinism(device, n_seeds: int = 1024, d: int = 1433,
 
 
 def check_k2_backward(ids: torch.Tensor, n: int, d: int, dtype, rng,
-                      what: str) -> int:
+                      what: str, *, offset: bool = False,
+                      vecs=GRAD_VECS) -> int:
     """K2's backward on one layout, bit for bit against its plain version
     (a gather has no arithmetic): ``segment_sum_backward`` on f32
-    ``grad_out[n, d]``; autograd through ``segment_sum`` on ``dtype``
-    messages (the grad in the messages' dtype); and an expanded
-    (zero-stride) ``grad_out``, as ``.sum()`` hands one over.  One count
-    of ``segment_sum.grad_launches`` per call with work on the card, none
-    on the CPU.  Returns the number of checks."""
+    ``grad_out[n, d]`` (with ``offset``, a view whose storage starts one
+    float into its allocation, so only 4-byte vectors fit); the kernel at
+    each width of ``vecs`` that D and the pointers allow, forced through
+    ``_segment_sum_backward_vec``, and on the card each wider one refused
+    with an error, never run narrower; autograd through ``segment_sum``
+    on ``dtype`` messages (the grad in the messages' dtype); and an
+    expanded (zero-stride) ``grad_out``, as ``.sum()`` hands one over.
+    One count of ``segment_sum.grad_launches`` per call with work on the
+    card, none on the CPU or for a refused width.  Returns the number of
+    checks."""
     device = ids.device
     on_gpu = device.type == "cuda"
     e = ids.numel()
     launch = int(on_gpu and e * d > 0)
     grad_out = torch.from_numpy(rng.standard_normal((n, d)).astype(
-        np.float32)).to(device)
+        np.float32)).to(device, copy=True)      # the allocator's alignment
+    if offset:
+        grad_out = torch.cat([grad_out.new_zeros(1),
+                              grad_out.flatten()])[1:].view(n, d)
     want = segment_sum_grad_ref(grad_out, ids, n)
     before = segment_sum.grad_launches
     got = segment_sum_backward(grad_out, ids, n)
@@ -1387,6 +1400,26 @@ def check_k2_backward(ids: torch.Tensor, n: int, d: int, dtype, rng,
     assert torch.equal(got, want), \
         f"segment_sum backward on {what} != plain version"
     checks = 1
+    widest = grad_vector_width(d, grad_out, got)
+    for vec in vecs:
+        before = segment_sum.grad_launches
+        if vec > widest:
+            if launch:
+                try:
+                    _segment_sum_backward_vec(grad_out, ids, n, vec)
+                    refused = False
+                except RuntimeError:
+                    refused = True
+                assert refused and segment_sum.grad_launches == before, \
+                    (f"segment_sum backward at VEC {vec} on {what}: a width "
+                     f"wider than {widest} was not refused")
+                checks += 1
+            continue
+        got = _segment_sum_backward_vec(grad_out, ids, n, vec)
+        assert segment_sum.grad_launches == before + launch, (what, vec)
+        assert torch.equal(got, want), \
+            f"segment_sum backward at VEC {vec} on {what} != plain version"
+        checks += 1
     msgs = _k2_messages(e, d, False, rng, device, dtype).requires_grad_()
     out = segment_sum(msgs, ids, n)
     assert out.requires_grad or not on_gpu, what
@@ -1407,6 +1440,11 @@ def check_k2_backward(ids: torch.Tensor, n: int, d: int, dtype, rng,
     return checks
 
 
+#: widths of K2's backward checks beyond the layouts': each vector width
+#: (16 and 2 take 4 and 2 floats), odd widths, Cora's
+K2_GRAD_WIDTHS = (1, 2, 3, 5, 16, 67, 1433)
+
+
 def phase_segment_sum_checks(device="cuda", seed: int = 2,
                              n_seeds: int = 1024) -> dict:
     """K2 vs its plain version: each design (forced through
@@ -1416,7 +1454,9 @@ def phase_segment_sum_checks(device="cuda", seed: int = 2,
     ``K2_TOL`` (bit for bit where the layout is exact); one call-count of
     ``segment_sum.launches`` per call that has work; E = 0, N = 0 and
     D = 0 giving zeros of the right shape; K2's backward bit for bit on
-    every case (:func:`check_k2_backward`); then the ``rows`` design's
+    every case and at every vector width it allows, and at
+    :data:`K2_GRAD_WIDTHS` with ``grad_out`` aligned and one float off
+    (:func:`check_k2_backward`); then the ``rows`` design's
     determinism on the served ids (:func:`check_k2_determinism`)."""
     on_gpu = torch.device(device).type == "cuda"
     rng = np.random.default_rng(seed)
@@ -1449,6 +1489,14 @@ def phase_segment_sum_checks(device="cuda", seed: int = 2,
                 else:
                     _k2_close(got, want, dtype, what)
                 n_cases += 1
+    for d in K2_GRAD_WIDTHS:
+        ids = torch.from_numpy(rng.integers(-1, 503, 3000).astype(
+            np.int32)).to(device)
+        for offset in (False, True):
+            n_grad += check_k2_backward(
+                ids, 500, d, torch.float32, rng,
+                f"D={d}{' (grad_out one float off)' if offset else ''}",
+                offset=offset)
     for e, d, n in ((0, 8, 5), (7, 8, 0), (7, 0, 5)):
         msgs = torch.ones(e, d, device=device)
         ids = torch.zeros(e, dtype=torch.int32, device=device)
@@ -1522,6 +1570,63 @@ def measure_segment_sum(ids: torch.Tensor, d: int, n: int, flush,
             "gb_per_s": nbytes / (designs[picked]["ms"] * 1e-3) / 1e9}
 
 
+def measure_segment_sum_full_graph(ids: torch.Tensor, n: int, widths,
+                                   flush, gen: torch.Generator) -> dict:
+    """K2's forward at the full-graph training shapes: messages [E, D] by
+    the full graph's ``edge_dst`` (unsorted, E > ``ROWS_MAX_EDGES``) for
+    each D of ``widths`` (layer 0, layer 1, the degrees).  The messages
+    are small integers, so every order of the adds gives the same f32
+    sums and each design is held to the plain version bit for bit.  Per
+    width: both designs' CUDA-event ms, the plain version's ms,
+    ``zeros(N, D).index_add_``'s (given the messages themselves when
+    every id is valid: ``msgs[valid]`` would be a second 22.6 GB copy at
+    D = 1433), the bound, the rate of ``plan``'s design, and the faster
+    design (recorded beside ``plan``'s, not asserted).  Each result is
+    freed before the next call, so the peak (reported) stays near two
+    copies of the messages."""
+    e = ids.numel()
+    valid = (ids >= 0) & (ids < n)
+    n_valid = int(valid.sum())
+    lib_ids = ids[valid].long()
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for d in widths:
+        msgs = torch.randint(-8, 9, (e, d), generator=gen, device="cuda",
+                             dtype=torch.float32)
+        lib_msgs = msgs if n_valid == e else msgs[valid]
+        want = segment_sum_ref(msgs, ids, n)
+
+        def lib():
+            return torch.zeros(n, d, device="cuda").index_add_(
+                0, lib_ids, lib_msgs)
+
+        assert torch.equal(lib(), want), f"index_add_ at D={d} != plain"
+        designs = {}
+        for design in K2_DESIGNS:
+            def call(m=design):
+                return _segment_sum_design(msgs, ids, n, m)
+            assert torch.equal(call(), want), \
+                f"segment_sum {design} at the full-graph D={d} != plain"
+            designs[design] = {"ms": time_cuda(call, flush=flush)}
+        del want
+        plain = time_cuda(lambda: segment_sum_ref(msgs, ids, n), flush=flush)
+        lib_ms = time_cuda(lib, flush=flush)
+        del msgs, lib_msgs
+        torch.cuda.empty_cache()
+        picked = k2_plan(e, d, n)
+        fastest = min(designs, key=lambda m: designs[m]["ms"])
+        bms, by = k2_bound_ms(e, d, n, n_valid)
+        nbytes = k2_bytes(e, d, n, n_valid)
+        out[d] = {"e": e, "d": d, "n": n, "valid_edges": n_valid,
+                  "design": picked, "fastest": fastest, "designs": designs,
+                  "ms": designs[picked]["ms"], "plain_ms": plain,
+                  "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                  "bytes": nbytes, "max_abs_err": 0.0,
+                  "gb_per_s": nbytes / (designs[picked]["ms"] * 1e-3) / 1e9}
+    return {"widths": out,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
 def k2_grad_bound_ms(e: int, d: int, rows: int,
                      id_bytes: int) -> tuple[float, str]:
     """Least time for K2's backward on this data: each of the ``rows``
@@ -1537,7 +1642,7 @@ def measure_segment_sum_grad(ids: torch.Tensor, d: int, n: int, flush,
                              gen: torch.Generator) -> dict:
     """K2's backward at one training shape: random f32 ``grad_out[n, d]``
     gathered by ``ids``; the kernel bit for bit against its plain version,
-    its CUDA-event time, its CUDA launches per call (profiler), the plain
+    the vector width it took, its CUDA-event time, the plain
     version's time and the library calls' on the valid ids: the same
     gather as ``grad_out.index_select(0, ids)``, ``grad_out[ids]`` and
     ``embedding(ids, grad_out)``, each checked against the plain version;
@@ -1548,9 +1653,11 @@ def measure_segment_sum_grad(ids: torch.Tensor, d: int, n: int, flush,
     def call():
         return segment_sum_backward(grad_out, ids, n)
 
-    assert torch.equal(call(), segment_sum_grad_ref(grad_out, ids, n)), \
+    got = call()
+    assert torch.equal(got, segment_sum_grad_ref(grad_out, ids, n)), \
         "segment_sum backward (timed shape) != plain version"
-    counted = cuda_launches(call, "k2_") or (None, None, None)
+    vec = grad_vector_width(d, grad_out, got)
+    del got
     ms = time_cuda(call, flush=flush)
     plain = time_cuda(lambda: segment_sum_grad_ref(grad_out, ids, n),
                       flush=flush)
@@ -1574,13 +1681,10 @@ def measure_segment_sum_grad(ids: torch.Tensor, d: int, n: int, flush,
     bms, by = k2_grad_bound_ms(e, d, rows, ids.element_size())
     nbytes = bms * 1e-3 * HBM_BYTES_PER_S
     return {"e": e, "d": d, "n": n, "valid_edges": n_valid,
-            "grad_rows_read": rows, "ms": ms, "plain_ms": plain,
+            "grad_rows_read": rows, "vec": vec, "ms": ms, "plain_ms": plain,
             "library": lib_ms, "library_ms": lib_ms[best],
             "library_call": best, "bound_ms": bms,
             "bound_by": by, "max_abs_err": 0.0, "bytes": nbytes,
-            "k2_launches_per_call": counted[0],
-            "cuda_launches_per_call": counted[1],
-            "kernel_device_ms": counted[2],
             "gb_per_s": nbytes / (ms * 1e-3) / 1e9}
 
 
@@ -1772,34 +1876,113 @@ K3_SHAPES = {
 }
 
 
-def cuda_launches(fn, prefix: str, attempts: int = 3) -> tuple | None:
-    """CUDA kernels that one call of ``fn`` launches, counted in a
-    ``torch.profiler`` trace of that call: ``(mine, all, device_ms)`` --
-    those whose name holds ``prefix`` (``k2_``, ``k3_``: the kernel's
-    own), all of them, and the device milliseconds of each of the
-    kernel's own by name.  A trace now and then holds no device event at
-    all; the call is then traced again, up to ``attempts`` times, and
-    None (not measured) is returned if no trace saw the card."""
+def launches_per_call(events, prefix: str, calls: int) -> tuple:
+    """``(mine, all, device_ms)`` per call from the ``key_averages()`` of
+    a trace of ``calls`` calls: the CUDA kernels whose name holds
+    ``prefix`` (``k2_``, ``k3_``: the kernel's own), all CUDA kernels,
+    and the device milliseconds a call of each of the kernel's own by
+    name.  The schedule's own ``ProfilerStep*`` span, which the trace
+    also shows on the device, is not a launch.  Each total must divide
+    evenly by ``calls``: a trace that lost some of a call's kernels fails
+    here rather than report a fraction."""
     import re
-    from torch.profiler import ProfilerActivity, profile
+    device = [ev for ev in events
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and not ev.key.startswith("ProfilerStep")]
+    mine = [ev for ev in device if prefix in ev.key]
+    assert mine, (f"no {prefix} kernel in the trace: "
+                  f"{[ev.key for ev in device]}")
+    n_mine = sum(ev.count for ev in mine)
+    n_all = sum(ev.count for ev in device)
+    assert n_mine % calls == 0 and n_all % calls == 0, \
+        (f"{n_mine} {prefix} kernels and {n_all} in all in a trace of "
+         f"{calls} calls")
+    device_ms = {}
+    for ev in mine:
+        name = re.search(prefix + r"\w+", ev.key).group(0)
+        device_ms[name] = (device_ms.get(name, 0.0)
+                           + ev.device_time_total / 1e3 / calls)
+    return n_mine // calls, n_all // calls, device_ms
 
-    for _ in range(attempts):
+
+#: calls counted in one profiler window (:func:`cuda_launches`)
+TRACE_CALLS = 8
+
+
+def cuda_launches(fn, prefix: str, attempts: int = 4) -> tuple | None:
+    """CUDA kernels that one call of ``fn`` launches, from one
+    ``torch.profiler`` window: one warm-up call traced and dropped (the
+    schedule's warm-up step), then :data:`TRACE_CALLS` calls counted; per
+    call, as :func:`launches_per_call` gives them.  A window of one short
+    call often held no device event; a window that holds none or loses a
+    call is traced again, up to ``attempts`` times.  None (not measured)
+    is returned if no trace saw the card; if the last trace saw it but
+    its totals do not divide by the calls, :func:`launches_per_call`
+    raises.  Late in a full run, after ``[train]``, windows lost kernels
+    in every retry (5 of 8 calls); :func:`fresh_k2_grad_launches` counts
+    there in a new process."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             fn()
             torch.cuda.synchronize()
-        device = [ev for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if device:
-            mine = [ev for ev in device if prefix in ev.key]
-            assert mine, (f"no {prefix} kernel in the trace: "
-                          f"{[ev.key for ev in device]}")
-            device_ms = {re.search(prefix + r"\w+", ev.key).group(0):
-                         ev.device_time_total / 1e3 for ev in mine}
-            return (sum(ev.count for ev in mine),
-                    sum(ev.count for ev in device), device_ms)
+            prof.step()
+            for _ in range(TRACE_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = prof.key_averages()
+        if not any(ev.device_type == cuda for ev in events):
+            continue
+        try:
+            return launches_per_call(events, prefix, TRACE_CALLS)
+        except AssertionError:
+            if attempt == attempts - 1:
+                raise
     return None
+
+
+#: run by :func:`fresh_k2_grad_launches` in a new Python process:
+#: argv[1] this file, argv[2] a JSON list of (label, ids .npy, N, D)
+_FRESH_K2_GRAD_LAUNCHES = """
+import importlib.util, json, sys
+import numpy as np, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+out = {}
+for label, path, n, d in json.loads(sys.argv[2]):
+    ids = torch.from_numpy(np.load(path)).cuda()
+    grad = torch.randn(n, d, device="cuda")
+    out[label] = cs.cuda_launches(
+        lambda: cs.segment_sum_backward(grad, ids, n), "k2_")
+print(json.dumps(out))
+"""
+
+
+def fresh_k2_grad_launches(cases: dict, d: int, workdir: str) -> dict:
+    """K2's backward's CUDA launches per call (:func:`cuda_launches`) at
+    each case ``label -> (ids, n)``, counted in a new Python process that
+    loads the library this run built: late in this process the profiler
+    lost kernel records (the same window in a fresh process counts every
+    call).  The ids go over as ``.npy`` files in ``workdir``; the
+    process is waited for."""
+    args = []
+    for label, (ids, n) in cases.items():
+        path = os.path.join(workdir, f"k2_grad_ids_{label}.npy")
+        np.save(path, ids.cpu().numpy())
+        args.append((label, path, int(n), int(d)))
+    done = subprocess.run(
+        [sys.executable, "-c", _FRESH_K2_GRAD_LAUNCHES,
+         os.path.abspath(__file__), json.dumps(args)],
+        check=True, capture_output=True, text=True, timeout=300)
+    return json.loads(done.stdout.strip().splitlines()[-1])
 
 
 def measure_flash(kind: str, flush, gen) -> dict:
@@ -2454,7 +2637,10 @@ def main(argv=None) -> int:
         f"{K2_TOL[torch.float32]}, bf16 {K2_TOL[torch.bfloat16]} of the "
         f"plain version (one_segment bit for bit); int64 ids "
         f"{list(WIDE_IDS)} dropped by both designs; backward bit for bit "
-        f"on every case ({k2_checks['backward_checks']} checks)")
+        f"on every case and at D {list(K2_GRAD_WIDTHS)} (grad_out aligned "
+        f"and one float off), at every vector width of {list(GRAD_VECS)} "
+        f"floats the layout allows, wider ones refused "
+        f"({k2_checks['backward_checks']} checks)")
     log(f"[kernel] segment_sum rows on the served layout (E={det['e']}, "
         f"{det['valid_edges']} valid, D={det['d']}, N={det['n']}): bit-"
         f"identical across two calls; equal to the CPU plain version bit "
@@ -2843,30 +3029,55 @@ def main(argv=None) -> int:
             f"{train_k2}, K2 backward {train_k2b}; phase wall "
             f"{trn['wall_s']:.1f} s")
 
-        # phase 15: K2's backward at the two training shapes
+        # phase 15: K2 at the full-graph training shapes (forward, both
+        # designs, after [train] has freed its tensors), then K2's
+        # backward at the two training shapes
         gen = torch.Generator(device="cuda")
         gen.manual_seed(5)
+        gc.collect()
+        torch.cuda.empty_cache()
         flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+        full_ids = trn.pop("full_graph_ids")
+        k2f = measure_segment_sum_full_graph(
+            full_ids, trn["vertices"], (trn["d_in"], trn["d_hidden"], 1),
+            flush, gen)
+        for r in k2f["widths"].values():
+            log(f"[kernel] segment_sum full graph D={r['d']}: f32[{r['e']},"
+                f"{r['d']}] by unsorted int32[{r['e']}] ({r['valid_edges']} "
+                f"valid) -> f32[{r['n']},{r['d']}]; plan picks "
+                f"{r['design']}, fastest {r['fastest']}; " + "; ".join(
+                    f"{m} {v['ms']:.4f} ms" for m, v in r["designs"].items())
+                + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"{r['gb_per_s']:.1f} GB/s; plain {r['plain_ms']:.4f} ms; "
+                f"library_ms (index_add_) {r['library_ms']:.4f}; bit for "
+                f"bit equal to the plain version (integer messages)")
+        log(f"[kernel] segment_sum full graph: max_memory_allocated "
+            f"{k2f['max_memory_allocated']} B")
         k2g = {}
-        for label, ids_t, n in (
-                ("full_graph", trn.pop("full_graph_ids"), trn["vertices"]),
-                ("sampled", trn.pop("sampled_ids"), smp["nodes"])):
+        grad_cases = {"full_graph": (full_ids, trn["vertices"]),
+                      "sampled": (trn.pop("sampled_ids"), smp["nodes"])}
+        fresh = fresh_k2_grad_launches(grad_cases, trn["d_hidden"], workdir)
+        for label, (ids_t, n) in grad_cases.items():
             r = k2g[label] = measure_segment_sum_grad(
                 ids_t, trn["d_hidden"], n, flush, gen)
-            launches = ("not measured" if r["k2_launches_per_call"] is None
-                        else f"{r['k2_launches_per_call']} K2, "
-                        f"{r['cuda_launches_per_call']} in all")
+            counted = fresh[label] or (None, None, None)
+            r.update(k2_launches_per_call=counted[0],
+                     cuda_launches_per_call=counted[1],
+                     kernel_device_ms=counted[2])
+            launches = ("not measured" if counted[0] is None
+                        else f"{counted[0]} K2, {counted[1]} in all, over "
+                        f"{TRACE_CALLS} calls in a fresh process")
             log(f"[kernel] segment_sum backward {label}: grad f32[{r['n']},"
                 f"{r['d']}] gathered by int32[{r['e']}] ({r['valid_edges']} "
                 f"valid, {r['grad_rows_read']} distinct rows): kernel "
-                f"{r['ms']:.4f} ms (CUDA launches per call "
-                f"(profiler): {launches})  bound "
+                f"{r['ms']:.4f} ms at VEC {r['vec']} (CUDA launches per "
+                f"call (profiler): {launches})  bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})  "
                 f"{r['gb_per_s']:.1f} GB/s  plain {r['plain_ms']:.4f} ms  "
                 f"library_ms {r['library_ms']:.4f} ({r['library_call']}; "
                 + ", ".join(f"{k} {v:.4f}" for k, v in r["library"].items())
                 + "); bit for bit equal to the plain version")
-        del flush
+        del flush, full_ids, grad_cases
         torch.cuda.empty_cache()
 
         # phase 16: [compile] the load file through the graph compiler,
@@ -2896,6 +3107,7 @@ def main(argv=None) -> int:
             f"equal the original CSR as int64")
     results.update(load=load, serve=serve, logcsr=logcsr, hotset=hot,
                    traversal=trav, crossover=cross, train=trn,
+                   segment_sum_full_graph=k2f,
                    segment_sum_backward=k2g, compile=comp,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
                    segment_sum_checks=k2_checks,
@@ -2945,6 +3157,11 @@ def main(argv=None) -> int:
             **{key: r[key] for key in ("plain_ms", "bound_ms", "bound_by",
                                        "library_ms")}}
             for label, r in k2.items()},
+        "full_graph": {d: {key: r[key] for key in (
+            "e", "d", "n", "valid_edges", "design", "fastest", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "gb_per_s")}
+            | {m: v["ms"] for m, v in r["designs"].items()}
+            for d, r in k2f["widths"].items()},
     }, {
         "name": "segment_sum_backward", "route": "cuda",
         "source": K2_CUDA_SOURCE, "replaces": K2_TPU_KERNEL,
@@ -2961,8 +3178,9 @@ def main(argv=None) -> int:
                   f"by int32[{k2g['full_graph']['e']}] -> f32["
                   f"{k2g['full_graph']['e']},{k2g['full_graph']['d']}] "
                   f"(full-graph layer 1)"),
+        "vec": k2g["full_graph"]["vec"],
         "shapes": {label: {key: r[key] for key in (
-            "e", "d", "n", "valid_edges", "grad_rows_read", "ms",
+            "e", "d", "n", "valid_edges", "grad_rows_read", "vec", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "library", "k2_launches_per_call",
             "cuda_launches_per_call")} for label, r in k2g.items()},

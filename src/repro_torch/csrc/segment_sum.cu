@@ -60,12 +60,34 @@
 // The JAX package has no backward kernel (it trains through XLA's own
 // segment_sum), so this one replaces nothing on the TPU side; it keeps
 // the card's one segment sum, the kernel above, on the training path.
-// Bound: memory -- E*D f32 read from grad_out (rows of valid ids only),
-// E*D f32 written and the E ids read once.  One thread per element of
-// the flattened E x D output, so neighbouring threads write neighbouring
-// addresses whatever D is; each id is read in its own width and compared
-// with N in 64 bits, as the forward does.  No arithmetic: the result is
-// the plain version's bit for bit.
+//
+// Bound: memory.  The function must read each of the R distinct rows of
+// f32 grad_out that a valid id names once, write the E x D f32 gradient
+// once and read the E ids once: (4*R*D + 4*E*D + E*id_bytes) bytes over
+// HBM bandwidth.  At GCN's full-graph shape (D = 16, E = 3.94 M, R =
+// 148,526) that is 252 MB of writes against 17 MB of rows, so the rows
+// stay in the 50 MB L2 and the write stream sets the pace.  There is no
+// arithmetic, so neither wgmma nor TMA applies: TMA copies tiles by
+// coordinate and has no row gather.  What the design does instead:
+//   - Vector width VEC (4, 2 or 1 floats: 16, 8 or 4 bytes), picked per
+//     call by the wrapper (ops.py::grad_vector_width) as the widest that
+//     D and both pointers allow; the launcher refuses any other.  D = 16
+//     moves a row in four 16-byte vectors.
+//   - No division per element: a row is covered by `lpr` lanes (the
+//     smallest power of two >= D/VEC, at most 32), a warp holds 32/lpr
+//     rows side by side, and a lane loops over columns where D/VEC > 32
+//     (D = 1433 takes 45 columns a lane).  Rows come from the warp and
+//     lane index, with a grid-stride loop over steps on a grid of a few
+//     waves; 64-bit products appear only in the id*D and row*D offsets.
+//   - Loads in flight: each thread holds kGradRows rows at once, first
+//     their ids (one load a row, not one an element), then their grad_out
+//     vectors (__ldg), then the stores.
+//   - Stores evict-first (__stcs), so the gradient streamed out does not
+//     push the grad_out rows that many ids name again out of L2.
+// Each id is read in its own width and compared with N in 64 bits, as
+// the forward does, so an int64 id of 2^32 gives a zero row.  One launch,
+// no host sync, nothing allocated; the result is the plain version's bit
+// for bit.
 //
 // Plain C interface (loaded with ctypes): the launcher enqueues on the
 // stream it is given, allocates nothing, does not synchronise, and
@@ -101,6 +123,11 @@ constexpr int kLoads = 4;
 
 constexpr unsigned kAll = 0xffffffffu;
 
+// k2_grad: rows a thread holds at once (their loads all in flight before
+// the first store), and the grid's cap in waves of resident blocks
+constexpr int kGradRows = 4;
+constexpr int kGradWaves = 4;
+
 template <typename Id>
 __global__ void __launch_bounds__(kThreads)
 k2_atomic(const float* __restrict__ msgs, const Id* __restrict__ ids,
@@ -117,20 +144,52 @@ k2_atomic(const float* __restrict__ msgs, const Id* __restrict__ ids,
     }
 }
 
-// Backward gather: out[i] = grad[ids[e] * d + col] where i = e * d + col
-// and ids[e] lies in [0, n), else 0.
-template <typename Id>
+// The vector k2_grad moves: VEC floats in one 16-, 8- or 4-byte access.
+template <int VEC> struct GradVec;
+template <> struct GradVec<4> { using T = float4; };
+template <> struct GradVec<2> { using T = float2; };
+template <> struct GradVec<1> { using T = float; };
+
+// Backward gather, rows of dv = D/VEC vectors: out[r] = grad[ids[r]] where
+// ids[r] lies in [0, n), else a zero row.  Lane `lane` of a warp covers
+// row slot lane >> lpr_shift, columns (lane & (lpr-1)) + k*lpr; a warp
+// step takes kGradRows groups of 32 >> lpr_shift consecutive rows.
+template <typename Id, int VEC>
 __global__ void __launch_bounds__(kThreads)
 k2_grad(const float* __restrict__ grad, const Id* __restrict__ ids,
-        float* __restrict__ out, long long total, long long d, long long n) {
-    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
-                       + threadIdx.x;
-         i < total; i += stride) {
-        const long long e = i / d;
-        const long long col = i - e * d;
-        const long long seg = __ldg(ids + e);
-        out[i] = seg >= 0 && seg < n ? __ldg(grad + seg * d + col) : 0.0f;
+        float* __restrict__ out, long long e, long long dv, long long n,
+        int lpr_shift) {
+    using V = typename GradVec<VEC>::T;
+    const V* __restrict__ g = reinterpret_cast<const V*>(grad);
+    V* __restrict__ o = reinterpret_cast<V*>(out);
+    const int lane = threadIdx.x & 31;
+    const int lpr = 1 << lpr_shift;
+    const int slots = 32 >> lpr_shift;           // rows side by side
+    const int slot = lane >> lpr_shift;
+    const int col0 = lane & (lpr - 1);
+    const long long step = static_cast<long long>(slots) * kGradRows;
+    const long long warps =
+        static_cast<long long>(gridDim.x) * (kThreads / 32);
+    for (long long base = (static_cast<long long>(blockIdx.x) * kThreads
+                           + threadIdx.x) / 32 * step;
+         base < e; base += warps * step) {
+        long long row[kGradRows], src[kGradRows];
+#pragma unroll
+        for (int j = 0; j < kGradRows; ++j) {
+            row[j] = base + j * slots + slot;
+            const long long id =
+                row[j] < e ? static_cast<long long>(__ldg(ids + row[j])) : -1;
+            src[j] = id >= 0 && id < n ? id * dv : -1;
+        }
+        for (long long c = col0; c < dv; c += lpr) {
+            V x[kGradRows];
+#pragma unroll
+            for (int j = 0; j < kGradRows; ++j)
+                x[j] = src[j] >= 0 ? __ldg(g + src[j] + c) : V{};
+#pragma unroll
+            for (int j = 0; j < kGradRows; ++j)
+                if (row[j] < e) __stcs(o + row[j] * dv + c, x[j]);
+        }
     }
 }
 
@@ -389,16 +448,41 @@ int launch(const float* msgs, const Id* ids, float* out, long long e,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename Id, int VEC>
+int launch_grad_vec(const float* grad, const Id* ids, float* out,
+                    long long e, long long d, long long n, cudaStream_t st) {
+    const long long dv = d / VEC;
+    int shift = 0;
+    while (shift < 5 && (1LL << shift) < dv) ++shift;
+    const long long rows_per_block =
+        static_cast<long long>(kThreads / 32) * (32 >> shift) * kGradRows;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long cap =
+        static_cast<long long>(sms) * (2048 / kThreads) * kGradWaves;
+    long long blocks = (e + rows_per_block - 1) / rows_per_block;
+    if (blocks > cap) blocks = cap;
+    k2_grad<Id, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        grad, ids, out, e, dv, n, shift);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Id>
 int launch_grad(const float* grad, const Id* ids, float* out, long long e,
-                long long d, long long n, cudaStream_t st) {
-    const long long total = e * d;
-    if (total == 0) return 0;
-    long long blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    k2_grad<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        grad, ids, out, total, d, n);
-    return static_cast<int>(cudaGetLastError());
+                long long d, long long n, int vec, cudaStream_t st) {
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(grad)
+                           | reinterpret_cast<uintptr_t>(out);
+    if ((vec != 1 && vec != 2 && vec != 4) || d % vec != 0
+        || ptrs % (4 * vec) != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (e * d == 0) return 0;
+    if (vec == 4) return launch_grad_vec<Id, 4>(grad, ids, out, e, d, n, st);
+    if (vec == 2) return launch_grad_vec<Id, 2>(grad, ids, out, e, d, n, st);
+    return launch_grad_vec<Id, 1>(grad, ids, out, e, d, n, st);
 }
 
 }  // namespace
@@ -431,13 +515,15 @@ extern "C" int segment_sum_launch(const void* msgs, const void* ids,
 // The backward: gather `grad` (device pointer, f32[n, d] row-major) by
 // `ids` (device pointer, e ids: int64 if `ids_64`, else int32) into
 // `grad_msgs` (device pointer, f32[e, d]), zero rows where an id lies
-// outside [0, n), on `stream`.  Every element of `grad_msgs` is written.
-// Returns 0 on success, a cudaError_t otherwise (cudaErrorInvalidValue for
-// a negative size or n >= 2^31).
+// outside [0, n), on `stream`, in vectors of `vec` floats.  Every element
+// of `grad_msgs` is written.  Returns 0 on success, a cudaError_t
+// otherwise (cudaErrorInvalidValue for a negative size, n >= 2^31, or a
+// `vec` other than 1, 2 or 4, one that does not divide d, or one whose
+// 4*vec bytes either pointer is not aligned to).
 extern "C" int segment_sum_grad_launch(const void* grad, const void* ids,
                                        int ids_64, void* grad_msgs,
                                        long long e, long long d, long long n,
-                                       void* stream) {
+                                       int vec, void* stream) {
     if (e < 0 || d < 0 || n < 0 || n >= (1LL << 31))
         return static_cast<int>(cudaErrorInvalidValue);
     const auto* g = static_cast<const float*>(grad);
@@ -445,8 +531,9 @@ extern "C" int segment_sum_grad_launch(const void* grad, const void* ids,
     const auto st = static_cast<cudaStream_t>(stream);
     if (ids_64)
         return launch_grad(g, static_cast<const int64_t*>(ids), o, e, d, n,
-                           st);
-    return launch_grad(g, static_cast<const int32_t*>(ids), o, e, d, n, st);
+                           vec, st);
+    return launch_grad(g, static_cast<const int32_t*>(ids), o, e, d, n, vec,
+                       st);
 }
 
 // Text of a cudaError_t, for the wrapper's exception message.

@@ -33,7 +33,7 @@ def _launcher():
         grad = lib.segment_sum_grad_launch
         grad.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_longlong, ctypes.c_longlong,
+                         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_void_p]
         grad.restype = ctypes.c_int
         lib.segment_sum_error_string.argtypes = [ctypes.c_int]
@@ -67,13 +67,15 @@ def segment_sum_cuda(messages: torch.Tensor, ids: torch.Tensor,
 
 
 def segment_sum_grad_cuda(grad_out: torch.Tensor, ids: torch.Tensor,
-                          grad_msgs: torch.Tensor) -> None:
+                          grad_msgs: torch.Tensor, vec: int) -> None:
     """Launch the backward gather: ``grad_msgs[e] = grad_out[ids[e]]``
     for ids in ``[0, N)``, zero rows elsewhere; ``grad_out`` f32[N, D],
     ``ids`` int32 or int64 [E] (read in their own width), ``grad_msgs``
     f32[E, D] as allocated (every element is written), all contiguous on
-    the same CUDA device.  The caller has checked the arguments; this
-    raises if the launch is refused."""
+    the same CUDA device, moved in vectors of ``vec`` floats (4, 2 or 1).
+    The caller has checked the arguments and picked ``vec``; this raises
+    if the launch is refused, a ``vec`` that D or either pointer does not
+    allow among the reasons."""
     _, fn, errstr = _launcher()
     e, d = grad_msgs.shape
     n = grad_out.shape[0]
@@ -81,8 +83,8 @@ def segment_sum_grad_cuda(grad_out: torch.Tensor, ids: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(grad_out.data_ptr(), ids.data_ptr(),
                 int(ids.dtype == torch.int64), grad_msgs.data_ptr(), e, d, n,
-                stream)
+                vec, stream)
     if rc != 0:
         raise RuntimeError(
             f"segment_sum backward kernel launch failed (E={e}, D={d}, "
-            f"N={n}): CUDA error {rc}: {errstr(rc).decode()}")
+            f"N={n}, VEC={vec}): CUDA error {rc}: {errstr(rc).decode()}")

@@ -28,6 +28,8 @@ ROWS_MAX_EDGES = 1 << 21
 #: design's one launch costs less than rows' index pass and three
 #: launches (PERF.md: both designs across D on two id layouts)
 ROWS_MIN_WIDTH = 768
+#: vector widths of the backward kernel, in floats (16, 8, 4 bytes)
+GRAD_VECS = (4, 2, 1)
 
 
 def plan(e: int, d: int, n: int) -> str:
@@ -44,6 +46,18 @@ def plan(e: int, d: int, n: int) -> str:
     del n
     return "rows" if e <= ROWS_MAX_EDGES and d >= ROWS_MIN_WIDTH else \
         "atomic"
+
+
+def grad_vector_width(d: int, grad: torch.Tensor, out: torch.Tensor) -> int:
+    """The vector width, in floats, of one backward call gathering rows of
+    width ``d`` from ``grad`` into ``out``: the widest of
+    :data:`GRAD_VECS` that divides ``d`` and whose ``4 * VEC`` bytes both
+    data pointers are aligned to.  GCN's hidden width (D = 16) on fresh
+    allocations takes 4, D = 6 takes 2, Cora's D = 1433 and a view offset
+    by one float take 1.  The CUDA launcher refuses any wider one."""
+    return next(v for v in GRAD_VECS if d % v == 0
+                and grad.data_ptr() % (4 * v) == 0
+                and out.data_ptr() % (4 * v) == 0)
 
 
 def _segment_sum(messages, segment_ids, num_segments, design):
@@ -125,10 +139,15 @@ def segment_sum_backward(grad_out: torch.Tensor, segment_ids: torch.Tensor,
 
     ``grad_out`` may be any float32-castable [num_segments, D] view
     (autograd hands over expanded or strided ones); it is made contiguous
-    first.  A CUDA tensor goes through the gather kernel or raises; a CPU
-    tensor takes the plain version.  ``segment_sum.grad_launches`` counts
-    calls that launched the kernel (E*D > 0) and nothing else.
+    first.  A CUDA tensor goes through the gather kernel, in the vector
+    width :func:`grad_vector_width` picks, or raises; a CPU tensor takes
+    the plain version.  ``segment_sum.grad_launches`` counts calls that
+    launched the kernel (E*D > 0) and nothing else.
     """
+    return _segment_sum_backward(grad_out, segment_ids, num_segments, None)
+
+
+def _segment_sum_backward(grad_out, segment_ids, num_segments, vec):
     if grad_out.ndim != 2 or segment_ids.ndim != 1:
         raise ValueError("grad_out must be [N, D], segment_ids [E]")
     if grad_out.shape[0] != num_segments:
@@ -144,12 +163,15 @@ def segment_sum_backward(grad_out: torch.Tensor, segment_ids: torch.Tensor,
         return segment_sum_grad_ref(grad_out, segment_ids, num_segments)
     grad = grad_out.to(torch.float32).contiguous()
     ids = segment_ids.contiguous()
-    out = torch.empty(ids.shape[0], grad.shape[1], dtype=torch.float32,
+    d = grad.shape[1]
+    out = torch.empty(ids.shape[0], d, dtype=torch.float32,
                       device=grad.device)
     if out.numel():
         from repro_torch.kernels.segment_sum.kernel import \
             segment_sum_grad_cuda
-        segment_sum_grad_cuda(grad, ids, out)
+        if vec is None:
+            vec = grad_vector_width(d, grad, out)
+        segment_sum_grad_cuda(grad, ids, out, vec)
         with _launch_lock:
             segment_sum.grad_launches += 1
     return out
@@ -196,3 +218,16 @@ def _segment_sum_design(messages: torch.Tensor, segment_ids: torch.Tensor,
         raise ValueError(f"design must be one of {sorted(DESIGNS)}, got "
                          f"{design!r}")
     return _segment_sum(messages, segment_ids, num_segments, design)
+
+
+def _segment_sum_backward_vec(grad_out: torch.Tensor,
+                              segment_ids: torch.Tensor, num_segments: int,
+                              vec: int) -> torch.Tensor:
+    """:func:`segment_sum_backward` with the kernel's vector width named
+    (one of :data:`GRAD_VECS`) instead of picked, for the checks that
+    hold each width to the plain version.  On the card a width that D or
+    the pointers do not allow raises; it never falls back to a narrower
+    one.  Launches count on ``segment_sum.grad_launches``."""
+    if vec not in GRAD_VECS:
+        raise ValueError(f"vec must be one of {GRAD_VECS}, got {vec!r}")
+    return _segment_sum_backward(grad_out, segment_ids, num_segments, vec)

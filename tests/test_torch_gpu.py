@@ -32,7 +32,8 @@ from repro_torch.kernels.segment_sum import (segment_sum,
                                              segment_sum_grad_ref,
                                              segment_sum_ref)
 from repro_torch.kernels.segment_sum import plan as k2_plan
-from repro_torch.kernels.segment_sum.ops import _segment_sum_design
+from repro_torch.kernels.segment_sum.ops import (
+    _segment_sum_backward_vec, _segment_sum_design, grad_vector_width)
 from repro_torch.query import NeighborQueryEngine
 
 pytestmark = pytest.mark.gpu
@@ -204,36 +205,81 @@ def test_segment_sum_makes_no_host_sync(cuda, smoke, design, ids_dtype):
 
 @pytest.mark.parametrize("kind", K2_LAYOUTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_segment_sum_backward_on_every_layout(cuda, smoke, kind, dtype):
+@pytest.mark.parametrize("vec", [4, 2, 1])
+def test_segment_sum_backward_on_every_layout(cuda, smoke, kind, dtype, vec):
     """K2's backward bit for bit against its plain version on
     ``chip_smoke.k2_layout``'s layouts (int64 wide ids dropped, never
-    wrapped): the kernel entry, autograd through ``segment_sum`` (the
-    grad in the messages' dtype) and an expanded ``grad_out``; one count
-    of ``segment_sum.grad_launches`` per call with work."""
+    wrapped): the kernel entry, the kernel forced to ``vec`` floats a
+    vector (refused with an error where D or the pointers do not allow
+    it), autograd through ``segment_sum`` (the grad in the messages'
+    dtype) and an expanded ``grad_out``; one count of
+    ``segment_sum.grad_launches`` per call with work."""
     rng = np.random.default_rng(100 + K2_LAYOUTS.index(kind))
     ids_np, n, d, _ = smoke.k2_layout(kind, rng)
     ids = torch.from_numpy(ids_np).to(cuda)
-    assert smoke.check_k2_backward(ids, n, d, dtype, rng, kind) == \
-        (3 if n and d else 2)
+    forced = int(ids.numel() * d > 0 or d % vec == 0)
+    assert smoke.check_k2_backward(ids, n, d, dtype, rng, kind,
+                                   vecs=(vec,)) == \
+        (3 if n and d else 2) + forced
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 16, 67, 1433])
+@pytest.mark.parametrize("offset", [False, True])
+def test_segment_sum_backward_at_every_width(cuda, smoke, d, offset):
+    """The backward at widths that take each vector width and none, with
+    ``grad_out`` on the allocator's grid and one float off it (4-byte
+    vectors only): every width bit for bit where allowed, refused
+    where not."""
+    rng = np.random.default_rng(d)
+    ids = torch.from_numpy(rng.integers(-1, 203, 2000).astype(
+        np.int32)).to(cuda)
+    widest = 1 if offset else 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    assert smoke.check_k2_backward(ids, 200, d, torch.float32, rng,
+                                   f"D={d}", offset=offset) == 3 + 3
+    got = segment_sum_backward(torch.zeros(200, d, device=cuda), ids, 200)
+    view = torch.zeros(200 * d + 1, device=cuda)[1:].view(200, d)
+    assert grad_vector_width(d, view if offset else got, got) == widest
     torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
 def test_segment_sum_backward_makes_no_host_sync(cuda, smoke, ids_dtype):
+    """At GCN's hidden width (16 floats: 16-byte vectors, VEC 4) the
+    backward, forced and picked, and autograd through it run without a
+    host sync."""
     ids_np, n = smoke.served_tree_ids(64, seed=6)
     ids = torch.from_numpy(ids_np).to(cuda, ids_dtype)
     msgs = torch.randn(ids_np.size, 16, device=cuda, requires_grad=True)
     grad_out = torch.randn(n, 16, device=cuda)
-    segment_sum_backward(grad_out, ids, n)                # build and load
+    first = segment_sum_backward(grad_out, ids, n)        # build and load
+    assert grad_vector_width(16, grad_out, first) == 4
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = segment_sum_backward(grad_out, ids, n)
+        forced = _segment_sum_backward_vec(grad_out, ids, n, 4)
         segment_sum(msgs, ids, n).backward(grad_out)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     want = segment_sum_grad_ref(grad_out, ids, n)
     assert torch.equal(got, want) and torch.equal(msgs.grad, want)
+    assert torch.equal(forced, want)
+
+
+def test_segment_sum_backward_refuses_a_width_it_cannot_take(cuda):
+    """A width that D or the pointers do not allow raises at the launch
+    and never falls back to a narrower one."""
+    ids = torch.tensor([0, 1, -1, 2], dtype=torch.int32, device=cuda)
+    before = segment_sum.grad_launches
+    with pytest.raises(RuntimeError, match="VEC=4"):
+        _segment_sum_backward_vec(torch.randn(3, 6, device=cuda), ids, 3, 4)
+    view = torch.randn(3 * 16 + 1, device=cuda)[1:].view(3, 16)
+    with pytest.raises(RuntimeError, match="VEC=2"):
+        _segment_sum_backward_vec(view, ids, 3, 2)
+    assert segment_sum.grad_launches == before
+    assert torch.equal(_segment_sum_backward_vec(view, ids, 3, 1),
+                       segment_sum_grad_ref(view, ids, 3))
 
 
 @pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])

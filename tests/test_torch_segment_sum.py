@@ -227,3 +227,119 @@ def test_design_entry_refuses_an_unknown_design():
 ])
 def test_plan_at_the_served_shapes_and_its_limits(e, d, n, want):
     assert plan(e, d, n) == want
+
+
+# --- K2's backward against the JAX package's own gradient --------------
+
+import importlib.util  # noqa: E402
+import pathlib  # noqa: E402
+import sys  # noqa: E402
+
+import jax  # noqa: E402
+
+from repro.models.gnn.layers import scatter_sum  # noqa: E402
+from repro_torch.kernels.segment_sum import (  # noqa: E402
+    grad_vector_width, segment_sum_backward, segment_sum_grad_ref)
+from repro_torch.kernels.segment_sum.ops import (  # noqa: E402
+    GRAD_VECS, _segment_sum_backward_vec)
+
+#: chip_smoke.py's K2_SWEEP, and its int32 layouts (``wide`` holds int64
+#: ids, which the JAX op wraps: ROADMAP Queue 3)
+K2_SWEEP = [(64, 16, 4), (513, 200, 7), (2048, 128, 1024), (100, 1, 100),
+            (1, 8, 1), (40000, 24, 20000)]
+INT32_LAYOUTS = ["served", "sorted", "permuted", "all_invalid",
+                 "one_segment", "ids_ge_n", "many_segments", "no_edges"]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """``chip_smoke.py``, for its K2 sweep and id layouts."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    path_before = list(sys.path)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = path_before
+    return mod
+
+
+def _grads_match_jax(ids, n, d, rng):
+    """The gradient of the sum with respect to the messages, for one
+    ``grad_out``: the JAX package's, by ``jax.vjp`` of the reference's
+    training op (``scatter_sum``, XLA's segment sum), against the port's
+    plain backward, its public entry and autograd through its
+    ``segment_sum``, all on the same numpy inputs.  Tolerance zero: the
+    gradient of a sum is a gather, with no arithmetic."""
+    e = ids.size
+    msgs = rng.standard_normal((e, d)).astype(np.float32)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda m: scatter_sum(m, jnp.asarray(ids), n,
+                                           use_kernel=False),
+                     jnp.asarray(msgs))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    tids, tg = torch.from_numpy(ids), torch.from_numpy(g)
+    np.testing.assert_array_equal(segment_sum_grad_ref(tg, tids, n).numpy(),
+                                  want)
+    np.testing.assert_array_equal(segment_sum_backward(tg, tids, n).numpy(),
+                                  want)
+    tm = torch.from_numpy(msgs).requires_grad_()
+    out = segment_sum(tm, tids, n)
+    if out.requires_grad:                 # E = 0: nothing to differentiate
+        out.backward(tg)
+        np.testing.assert_array_equal(tm.grad.numpy(), want)
+    else:
+        assert e == 0 and want.shape == (0, d)
+
+
+@pytest.mark.parametrize("E,D,N", K2_SWEEP)
+@pytest.mark.parametrize("above", [0, 3])
+def test_backward_on_the_sweep_matches_jax(smoke, E, D, N, above):
+    """Ids over [-1, N) and [-1, N+3), as ``phase_segment_sum_checks``
+    draws them: -1 padding and ids >= N give zero rows in both."""
+    assert [tuple(x) for x in K2_SWEEP] == list(smoke.K2_SWEEP)
+    rng = np.random.default_rng(E + D + N + above)
+    ids = rng.integers(-1, N + above, E).astype(np.int32)
+    _grads_match_jax(ids, N, D, rng)
+
+
+@pytest.mark.parametrize("kind", INT32_LAYOUTS)
+def test_backward_on_the_layouts_matches_jax(smoke, kind):
+    assert tuple(INT32_LAYOUTS) + ("wide",) == smoke.K2_LAYOUTS
+    rng = np.random.default_rng(INT32_LAYOUTS.index(kind) + 40)
+    ids, n, d, _ = smoke.k2_layout(kind, rng)
+    assert ids.dtype == np.int32
+    _grads_match_jax(ids, n, d, rng)
+
+
+@pytest.mark.parametrize("d,offset,want", [
+    (16, False, 4),            # GCN's hidden width: 16-byte vectors
+    (6, False, 2),
+    (1433, False, 1),          # Cora's width
+    (16, True, 1),             # a view one float into its allocation
+])
+def test_grad_vector_width(d, offset, want):
+    base = torch.zeros(3 * d + 4)
+    grad = base[1:3 * d + 1] if offset else base[:3 * d]
+    out = torch.zeros(5, d)
+    assert base.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    assert grad_vector_width(d, grad.view(3, d), out) == want
+    assert grad_vector_width(d, out, grad.view(3, d)) == want
+
+
+def test_backward_width_entry_on_cpu_is_the_plain_version():
+    """The entry that forces a vector width takes the plain version on a
+    CPU tensor whatever the width, launches nothing, and refuses a width
+    the kernel has not."""
+    rng = np.random.default_rng(12)
+    g = torch.from_numpy(rng.standard_normal((30, 8)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-1, 33, 200))
+    before = segment_sum.grad_launches
+    for vec in GRAD_VECS:
+        assert torch.equal(_segment_sum_backward_vec(g, ids, 30, vec),
+                           segment_sum_grad_ref(g, ids, 30))
+    assert segment_sum.grad_launches == before
+    with pytest.raises(ValueError, match="vec must be one of"):
+        _segment_sum_backward_vec(g, ids, 30, 3)

@@ -482,11 +482,18 @@ def test_train_phase_on_cpu(smoke, tmp_path, one_thread):
 
 def test_k2_backward_checks_on_cpu(smoke):
     out = smoke.phase_segment_sum_checks("cpu", n_seeds=32)
-    # 21 cases x f32/bf16, 3 checks each (the kernel entry, autograd, an
+    # 21 cases x f32/bf16, 3 checks each (the public entry, autograd, an
     # expanded grad_out) but for E = 0, where the CPU's plain version
-    # returns zeros that autograd cannot differentiate
-    assert out["backward_checks"] == (6 * 2 + len(smoke.K2_LAYOUTS)) * 2 \
-        * 3 - 2 == 124
+    # returns zeros that autograd cannot differentiate; then one a vector
+    # width D allows: the sweep's D 16/200/128/8/24 take 3, D 1 one, the
+    # layouts' D 1433 and 67 one, many_segments' D 24 three; then
+    # K2_GRAD_WIDTHS aligned (D 16 three widths, D 2 two) and one float
+    # off (one each), 3 + widths each
+    cases = (6 * 2 + len(smoke.K2_LAYOUTS)) * 2 * 3 - 2
+    widths = ((3 + 3 + 3 + 1 + 3 + 3) * 2 + 8 * 1 + 3) * 2
+    extra = 2 * 3 * len(smoke.K2_GRAD_WIDTHS) + (1 + 2 + 1 + 1 + 3 + 1 + 1) \
+        + len(smoke.K2_GRAD_WIDTHS)
+    assert out["backward_checks"] == cases + widths + extra == 269
 
 
 def _flip_one_grad(grad_out, ids, n):
@@ -513,6 +520,144 @@ def test_k2_backward_check_detects_a_planted_fault(smoke, monkeypatch,
     monkeypatch.setattr(smoke, "segment_sum_backward", fault)
     with pytest.raises(AssertionError, match=match):
         smoke.phase_segment_sum_checks("cpu", n_seeds=32)
+
+
+def test_k2_backward_width_check_detects_a_planted_fault(smoke, monkeypatch):
+    """A fault in one vector width's arm alone (VEC 4: one element off)
+    is caught by the check that forces each width."""
+    from repro_torch.kernels.segment_sum import segment_sum_grad_ref
+
+    def fault(grad_out, ids, n, vec):
+        out = segment_sum_grad_ref(grad_out, ids, n)
+        if vec == 4 and out.numel():
+            out.view(-1)[-1] -= 1.0
+        return out
+
+    monkeypatch.setattr(smoke, "_segment_sum_backward_vec", fault)
+    with pytest.raises(AssertionError,
+                       match=r"segment_sum backward at VEC 4 on sweep E=64"):
+        smoke.phase_segment_sum_checks("cpu", n_seeds=32)
+
+
+def _event(key, count, device_us, cuda=True):
+    from types import SimpleNamespace
+    kind = torch.autograd.DeviceType.CUDA if cuda else \
+        torch.autograd.DeviceType.CPU
+    return SimpleNamespace(key=key, count=count, device_type=kind,
+                           device_time_total=device_us)
+
+
+def test_launches_per_call_divides_a_window_of_calls(smoke):
+    """Eight calls of K2's atomic design in one trace: two template
+    instantiations of the kernel and the zero-fill; per call, one K2
+    launch, two in all, and each kernel's device time a call by name."""
+    events = [_event("void k2_atomic<int>(float const*, ...)", 6, 600.0),
+              _event("void k2_atomic<long>(float const*, ...)", 2, 200.0),
+              _event("void at::native::vectorized_elementwise_kernel", 8,
+                     80.0),
+              _event("aten::zeros", 8, 0.0, cuda=False),
+              _event("ProfilerStep*", 1, 620.0)]
+    assert smoke.launches_per_call(events, "k2_", 8) == (
+        1, 2, {"k2_atomic": 0.1})
+
+
+@pytest.mark.parametrize("events,match", [
+    ([_event("k2_grad<int, 4>", 7, 10.0)], "7 k2_ kernels"),
+    ([_event("k2_grad<int, 4>", 8, 10.0), _event("fill", 3, 1.0)],
+     "11 in all"),
+    ([_event("fill", 8, 1.0)], "no k2_ kernel"),
+])
+def test_launches_per_call_refuses_a_partial_trace(smoke, events, match):
+    with pytest.raises(AssertionError, match=match):
+        smoke.launches_per_call(events, "k2_", 8)
+
+
+def test_cuda_launches_drops_the_warm_up_and_retries(smoke, monkeypatch):
+    """``cuda_launches`` against a stubbed profiler: the warm-up call sits
+    in the schedule's warm-up step, so only the ``TRACE_CALLS`` calls
+    after it are counted; a window with no device event is traced again,
+    and after ``attempts`` such windows the result is None (not
+    measured)."""
+    import torch.profiler as tp
+
+    traces = []
+
+    class Profile:
+        def __init__(self, activities, schedule):
+            self.calls, self.step_no, self.schedule = 0, 0, schedule
+            self.sees_card = len(traces) >= 1   # the first window: none
+
+        def __enter__(self):
+            traces.append(self)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def step(self):
+            self.step_no += 1
+
+        def record(self):
+            if self.schedule(self.step_no) == \
+                    tp.ProfilerAction.RECORD_AND_SAVE:
+                self.calls += 1
+
+        def key_averages(self):
+            if not self.sees_card:
+                return [_event("aten::empty", self.calls, 0.0, cuda=False)]
+            return [_event("k2_grad<int, 4>", self.calls, 5.0 * self.calls),
+                    _event("memset", 2 * self.calls, 1.0),
+                    _event("ProfilerStep*", 1, 400.0)]
+
+    monkeypatch.setattr(tp, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert smoke.cuda_launches(lambda: traces[-1].record(), "k2_") == (
+        1, 3, {"k2_grad": 0.005})
+    assert len(traces) == 2 and traces[-1].calls == 8
+    traces.clear()
+    monkeypatch.setattr(Profile, "key_averages",
+                        lambda self: [_event("aten::empty", 1, 0.0, False)])
+    assert smoke.cuda_launches(lambda: traces[-1].record(), "k2_",
+                               attempts=3) is None
+    assert len(traces) == 3
+
+
+def test_cuda_launches_retraces_a_window_that_lost_a_call(smoke,
+                                                          monkeypatch):
+    """A window that lost one call's kernels (7 of 8) is traced again;
+    if every window loses one, the count is refused, not rounded."""
+    import torch.profiler as tp
+
+    traces = []
+
+    class Profile:
+        def __init__(self, activities, schedule):
+            traces.append(self)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def step(self):
+            pass
+
+        def key_averages(self):
+            calls = 8 if len(traces) >= lost_windows + 1 else 7
+            return [_event("k2_grad<int, 4>", calls, 2.0 * calls)]
+
+    monkeypatch.setattr(tp, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    lost_windows = 2
+    assert smoke.cuda_launches(lambda: None, "k2_") == (
+        1, 1, {"k2_grad": 0.002})
+    assert len(traces) == 3
+    traces.clear()
+    lost_windows = 4
+    with pytest.raises(AssertionError, match="7 k2_ kernels"):
+        smoke.cuda_launches(lambda: None, "k2_", attempts=4)
+    assert len(traces) == 4
 
 
 def _lost_restore(real, ckpt_dir, tree_like, **kw):
