@@ -30,7 +30,10 @@ width (the full graph streamed by two simulated hosts, K2's forward and
 its backward kernel, AdamW, a restart from a checkpoint after an injected
 failure, the first step held to the plain path; then sampled minibatches
 through the query engine; then both K2 designs and K2's backward timed at
-the training shapes), and compile the load file with the graph
+the training shapes), serve and train PNA and train MeshGraphNet and
+DimeNet at full width (``[gnn2]``: every segment sum on K2, every
+gradient of one on its backward; then both timed at those models'
+shapes), and compile the load file with the graph
 compiler and serve the hot-set trace from the compiled file -- checks
 every result against an independent plain computation, and prints what
 it measured.
@@ -42,8 +45,8 @@ object ``{"kernels": [...]}``; the last is
 Any failed phase raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device it exits with code 2 at once.
 
-The load/serve/LogCSR/hot-set/traversal/GNN/train/compile phases are
-plain functions of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
+The load/serve/LogCSR/hot-set/traversal/GNN/train/gnn2/compile phases
+are plain functions of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
 n_tokens)``, so the CPU tests run the same code at a small size.
 """
 
@@ -79,7 +82,7 @@ from repro_torch.obs import Tracer, tier_times  # noqa: E402
 from repro_torch.kernels.compbin_decode import (compbin_decode,  # noqa: E402
                                                 compbin_decode_ref,
                                                 stream_bucket_ids)
-from repro_torch.optim.adamw import tree_leaves  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels.flash_attention import (attention_bshd,  # noqa: E402
                                                  attention_ref,
                                                  flash_attention, plan)
@@ -633,16 +636,16 @@ def _zipf_requests(n_vertices: int, n_requests: int, batch: int,
 
 
 def gnn_plain_logits(gp: str, fp: str, cfg, params: dict, fanouts,
-                     seed: int, requests: list):
+                     seed: int, requests: list, arch: str = "gcn-cora"):
     """The plain CPU path the served logits are held against: an
     in-memory CSR sampler with the server's seed, feature rows read
     straight out of the store file (``np.memmap``, no PG-Fuse, no
-    gather), and the GCN forward on CPU tensors.  Yields (logits, block
-    edge_dst, block node count) per request."""
+    gather), and ``arch``'s forward on CPU tensors.  Yields (logits,
+    block edge_dst, block node count) per request."""
     from repro_torch.core import featstore
     from repro_torch.graph import NeighborSampler
     from repro_torch.launch.data_gnn import block_to_edges
-    from repro_torch.models.gnn import gcn
+    from repro_torch.launch.steps import _GNN_MODULES
 
     with open_graph(gp) as g:
         csr = g.read_full()
@@ -663,36 +666,58 @@ def gnn_plain_logits(gp: str, fp: str, cfg, params: dict, fanouts,
                  "edge_src": torch.from_numpy(src.astype(np.int32)),
                  "edge_dst": torch.from_numpy(dst.astype(np.int32))}
         with torch.inference_mode():
-            logits = gcn.forward(params, batch, cfg)[:len(seeds)].numpy()
-        yield logits, dst.astype(np.int32), n
+            logits = _GNN_MODULES[arch].forward(params, batch, cfg)
+        yield logits[:len(seeds)].numpy(), dst.astype(np.int32), n
+
+
+def k2_per_step(arch: str, cfg) -> tuple[int, int]:
+    """K2's (forward, backward) launches in one loss and its gradients
+    on the card.  GCN: one for the degrees and one a layer, and a
+    backward for the last layer only (layer 0's messages hold no
+    parameter).  PNA: the degrees, then six a layer (the mean is a sum
+    and a degree, the std two means), each sum with a backward.
+    MeshGraphNet: one a layer; DimeNet: the triplet and the node scatter
+    a block and the readout; each with a backward."""
+    if arch == "gcn-cora":
+        return cfg.n_layers + 1, 1
+    if arch == "pna":
+        return 1 + 6 * cfg.n_layers, 3 * cfg.n_layers
+    if arch == "meshgraphnet":
+        return cfg.n_layers, cfg.n_layers
+    if arch == "dimenet":
+        return 2 * cfg.n_blocks + 1, 2 * cfg.n_blocks + 1
+    raise KeyError(arch)
 
 
 def phase_gnn(device, workdir: str, *, scale: int = 18,
               edge_factor: int = 16, reduced: bool = False,
               n_requests: int = 8, batch: int = 1024,
-              fanouts=(5, 5), seed: int = 0) -> dict:
-    """GCN inference serving from CompBin through the port's
-    ``make_gnn_server`` (gcn-cora, full width unless ``reduced``):
-    ``n_requests`` zipf-drawn batches of ``batch`` seeds, every request
-    span-traced, every request's logits held against the plain CPU path
-    on the same block (:func:`gnn_plain_logits`) at ``GNN_TOL``."""
+              fanouts=(5, 5), seed: int = 0, arch: str = "gcn-cora") -> dict:
+    """GNN inference serving from CompBin through the port's
+    ``make_gnn_server`` (``arch``: gcn-cora or pna, full width unless
+    ``reduced``): ``n_requests`` zipf-drawn batches of ``batch`` seeds,
+    every request span-traced, every request's logits held against the
+    plain CPU path on the same block (:func:`gnn_plain_logits`) at
+    ``GNN_TOL``; K2 launches :func:`k2_per_step`'s forward count a
+    request."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.data_gnn import ensure_gnn_assets
     from repro_torch.launch.serve import make_gnn_server
-    from repro_torch.models.gnn import gcn
+    from repro_torch.launch.steps import _GNN_MODULES
 
     on_gpu = torch.device(device).type == "cuda"
-    spec = get_arch("gcn-cora")
+    spec = get_arch(arch)
     cfg = spec.make_reduced() if reduced else spec.make_config()
     t0 = time.perf_counter()
     gp, fp, _ = ensure_gnn_assets(workdir, cfg.d_in, cfg.n_classes,
                                   scale=scale, edge_factor=edge_factor)
     assets_s = time.perf_counter() - t0
-    params = gcn.init_params(cfg, torch.Generator().manual_seed(seed))
+    params = _GNN_MODULES[arch].init_params(
+        cfg, torch.Generator().manual_seed(seed))
     k1_0, k2_0 = compbin_decode.launches, segment_sum.launches
     tracer = Tracer()
     answer, engine, close = make_gnn_server(
-        "gcn-cora", cfg, workdir, fanouts=fanouts, seed=seed, decode="auto",
+        arch, cfg, workdir, fanouts=fanouts, seed=seed, decode="auto",
         device=device, params=params, scale=scale, edge_factor=edge_factor,
         tracer=tracer)
     try:
@@ -716,14 +741,14 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
     worst = 0.0
     for got, (want, dst, n_nodes) in zip(
             served, gnn_plain_logits(gp, fp, cfg, params, fanouts, seed,
-                                     requests)):
+                                     requests, arch)):
         assert got.shape == want.shape == (batch, cfg.n_classes), got.shape
         assert np.isfinite(got).all(), "non-finite logits"
         worst = max(worst, float(np.abs(got - want).max()))
         assert np.allclose(got, want, rtol=GNN_TOL, atol=GNN_TOL), \
             f"served logits differ from the plain path (max {worst})"
-    # one launch for the degrees, one per layer's aggregation
-    assert k2 == ((cfg.n_layers + 1) * n_requests if on_gpu else 0), k2
+    assert k2 == (k2_per_step(arch, cfg)[0] * n_requests if on_gpu
+                  else 0), k2
     if on_gpu:
         assert k1 > 0 and qs["device_batches"] > 0, (k1, qs)
     else:
@@ -1572,9 +1597,10 @@ def measure_segment_sum(ids: torch.Tensor, d: int, n: int, flush,
 
 def measure_segment_sum_full_graph(ids: torch.Tensor, n: int, widths,
                                    flush, gen: torch.Generator) -> dict:
-    """K2's forward at the full-graph training shapes: messages [E, D] by
-    the full graph's ``edge_dst`` (unsorted, E > ``ROWS_MAX_EDGES``) for
-    each D of ``widths`` (layer 0, layer 1, the degrees).  The messages
+    """K2's forward over ``ids`` into ``n`` segments for each D of
+    ``widths``: the full-graph training shapes (the full graph's
+    unsorted ``edge_dst``, E > ``ROWS_MAX_EDGES``; layer 0, layer 1, the
+    degrees) and ``[gnn2]``'s (:func:`gnn2_k2_shapes`).  The messages
     are small integers, so every order of the adds gives the same f32
     sums and each design is held to the plain version bit for bit.  Per
     width: both designs' CUDA-event ms, the plain version's ms,
@@ -2150,19 +2176,77 @@ STREAM_DATA_COUNTERS = ("vertices", "edges", "host_decode_bytes",
                         "feature_bytes_h2d", "label_rows", "label_bytes")
 
 
+#: ``[gnn2]``'s gradients against the plain path in float64: the kernel
+#: path may lie this many times as far from them, relative to each
+#: gradient's max|g|, as the f32 plain path lies at its worst over all
+#: parameters (plus ``TRAIN_GRAD_TOL``'s share of max|g|).  PNA's std
+#: aggregator's E[m^2] - E[m]^2 cancels, so either path's f32 gradients
+#: carry ~1e-5 x max|g| of rounding (``tests/test_torch_gnn_models.py``
+#: measures the JAX package's own: 1.2e-6 of a max|g| of 0.098);
+#: MeshGraphNet's 15 residual layers carry the sums' order to an element
+#: of edge_enc/l0_b 2.0e-3 apart where ``TRAIN_GRAD_TOL`` allows 3.0e-4
+#: (NVIDIA H100 80GB HBM3, 700.00 W).  Both paths add in a random order on
+#: the card, so the worst over all parameters, not each parameter's own
+#: draw, sets the scale
+EXACT_FACTOR = 2.0
+
+
 @contextlib.contextmanager
-def plain_segment_sum():
-    """Every segment sum of the GCN on its plain version (autograd
-    through ``index_add_``), on any device: the yardstick the kernel path
-    is held against in training."""
+def plain_segment_sum(fn=None):
+    """Every segment sum of the GNNs on ``fn`` (default: K2's plain
+    version, autograd through ``index_add_``), on any device: the
+    yardstick the kernel path is held against in training."""
     from repro_torch.models.gnn import layers
 
     saved = layers.segment_sum
-    layers.segment_sum = segment_sum_ref
+    layers.segment_sum = fn or segment_sum_ref
     try:
         yield
     finally:
         layers.segment_sum = saved
+
+
+def segment_sum_f64(messages: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """:func:`segment_sum_ref` in float64 (ids outside [0, N) dropped):
+    the segment sum of the float64 plain path."""
+    valid = (segment_ids >= 0) & (segment_ids < num_segments)
+    out = torch.zeros(num_segments, messages.shape[1], dtype=torch.float64,
+                      device=messages.device)
+    return out.index_add_(0, torch.where(valid, segment_ids, 0).long(),
+                          torch.where(valid[:, None], messages.double(), 0.0))
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A nested params dict as ``{"a/b": leaf}``, in ``tree_leaves``'
+    (sorted-key) order."""
+    if isinstance(tree, dict):
+        return {kk: v for k in sorted(tree)
+                for kk, v in flat_tree(tree[k], f"{prefix}{k}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def loss_and_grads(loss_fn, params) -> tuple[float, dict]:
+    """``loss_fn(params)`` and its gradient by parameter, from detached
+    leaves (``{path: grad}``, :func:`flat_tree`'s keys)."""
+    p = tree_map(lambda v: v.detach().requires_grad_(), params)
+    loss = loss_fn(p)
+    grads = torch.autograd.grad(loss, tree_leaves(p))
+    return float(loss.detach()), dict(zip(flat_tree(p), grads))
+
+
+def exact_plain_grads(mod, cfg, batch: dict, params):
+    """:func:`first_step_parity`'s ``exact`` for a GNN module: its
+    gradients on the plain path in float64 (the params and the config's
+    dtype float64, every segment sum :func:`segment_sum_f64`)."""
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+
+    def exact() -> dict:
+        with plain_segment_sum(segment_sum_f64):
+            return loss_and_grads(lambda p: mod.loss_fn(p, batch, cfg64),
+                                  tree_map(torch.Tensor.double, params))[1]
+
+    return exact
 
 
 def train_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -2175,6 +2259,68 @@ def train_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
         got, want, rtol=rtol, atol=atol), \
         f"{what}: max abs err {err} beyond rtol {rtol}, atol {atol}"
     return err
+
+
+def relative_distance(plain: dict, exact: dict) -> float:
+    """The worst over parameters of ``plain``'s max abs distance from
+    ``exact`` (float64) as a share of that parameter's max|exact|."""
+    return max((float((plain[k].double() - x).abs().max())
+                / float(x.abs().max())
+                for k, x in exact.items() if x.numel() and x.abs().max()),
+               default=0.0)
+
+
+def exact_close(got: torch.Tensor, exact: torch.Tensor, scale: float,
+                what: str) -> float:
+    """``got`` within ``(EXACT_FACTOR * scale + TRAIN_GRAD_TOL[1]) x
+    max|exact|`` of ``exact`` (the float64 plain path's), ``scale``
+    being the f32 plain path's :func:`relative_distance`; returns
+    ``got``'s max abs error against ``exact``."""
+    if not exact.numel():
+        return 0.0
+    err = float((got.double() - exact).abs().max())
+    bound = (EXACT_FACTOR * scale + TRAIN_GRAD_TOL[1]) \
+        * float(exact.abs().max())
+    assert got.shape == exact.shape and err <= bound, \
+        f"{what}: max abs err {err} from float64 beyond {bound}"
+    return err
+
+
+def first_step_parity(loss_fn, params, per_step: tuple, exact=None) -> dict:
+    """The loss and every gradient of ``loss_fn(params)`` on the kernel
+    path against the plain path (:func:`plain_segment_sum`) on the same
+    device: K2's launches on the kernel path equal ``per_step`` and none
+    on the plain path; the loss within ``TRAIN_LOSS_RTOL``; each gradient
+    within ``TRAIN_GRAD_TOL`` (:func:`train_close`) or, given ``exact``
+    (a callable returning the float64 plain path's gradients by
+    parameter), held to those by :func:`exact_close` at the f32 plain
+    path's :func:`relative_distance`."""
+    c0 = _k2_counts()
+    loss_k, grads_k = loss_and_grads(loss_fn, params)
+    c1 = _k2_counts()
+    with plain_segment_sum():
+        loss_p, grads_p = loss_and_grads(loss_fn, params)
+    assert _k2_counts() == c1 and (c1[0] - c0[0], c1[1] - c0[1]) == \
+        tuple(per_step), (c0, c1, _k2_counts(), per_step)
+    assert abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p), \
+        f"first-step loss {loss_k} != plain path's {loss_p}"
+    out = {"loss": loss_k, "plain_loss": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p)}
+    if exact is None:
+        out["grad_max_abs_err"] = {
+            k: train_close(grads_k[k], grads_p[k], f"first-step grad {k}")
+            for k in grads_p}
+        return out
+    grads_x = exact()
+    scale = out["plain_relative_distance"] = relative_distance(grads_p,
+                                                               grads_x)
+    out["grad_max_abs_err_vs_f64"] = {
+        k: exact_close(grads_k[k], grads_x[k], scale, f"first-step grad {k}")
+        for k in grads_p}
+    out["plain_max_abs_err_vs_f64"] = {
+        k: float((grads_p[k].double() - grads_x[k]).abs().max())
+        for k in grads_p if grads_p[k].numel()}
+    return out
 
 
 def param_drift(got: dict, want: dict, start: dict) -> dict:
@@ -2218,20 +2364,42 @@ def check_restart(resumed: dict, saved: dict, losses_after: list,
     return {"loss_rel_err": err, "drift": drift}
 
 
+def _train_kernel_class(name: str) -> str:
+    if "k2_grad" in name:
+        return "k2_grad"
+    return "k2" if "k2_" in name else _kernel_class(name)
+
+
 def train_step_split(step, state, batch) -> dict:
     """Where one training step spends the card's time: device time by
-    kernel class (K2's kernels, GEMMs, copies, other: the gathers and
-    their backward, ``where``, products, loss, AdamW) against the
-    host-clock wall of the same step (:func:`profile_device`); None
-    where the trace holds no device time."""
+    kernel class (K2's forward kernels, its backward ``k2_grad``, GEMMs,
+    copies, other: the gathers and their backward, ``where``, PNA's
+    ``index_reduce``, products, loss, AdamW) against the host-clock wall
+    of the same step (:func:`profile_device`); None where the trace holds
+    no device time."""
     wall, sums, kernels = profile_device(
-        lambda: step(state, batch),
-        lambda name: "k2" if "k2_" in name else _kernel_class(name),
-        ("k2", "gemm", "copy", "other"))
+        lambda: step(state, batch), _train_kernel_class,
+        ("k2", "k2_grad", "gemm", "copy", "other"))
     busy = sum(sums.values())
     return {"wall_ms": wall * 1e3, "device_ms": sums if busy else None,
             "idle_share": 1 - busy / (wall * 1e3) if busy else None,
             "top_kernels": sorted(kernels, reverse=True)[:8]}
+
+
+def _timed_steps(step, state, batch, n: int, device) -> tuple:
+    """``n`` steps from ``state`` on ``batch``: (state, losses, host-clock
+    seconds a step to a synchronise, K2's (forward, backward) launches a
+    step)."""
+    losses, secs, counts = [], [], []
+    for _ in range(n):
+        c0 = _k2_counts()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        _cuda_sync(device)
+        secs.append(time.perf_counter() - t0)
+        counts.append(tuple(b - a for a, b in zip(c0, _k2_counts())))
+    return state, losses, secs, counts
 
 
 def _k2_counts() -> tuple[int, int]:
@@ -2277,7 +2445,7 @@ def phase_train(device, workdir: str, *, scale: int = 18,
     on_gpu = torch.device(device).type == "cuda"
     spec = get_arch("gcn-cora")
     cfg = spec.make_reduced() if reduced else spec.make_config()
-    per_step = (cfg.n_layers + 1, 1) if on_gpu else (0, 0)
+    per_step = k2_per_step("gcn-cora", cfg) if on_gpu else (0, 0)
     out = {"arch": cfg.name, "d_in": cfg.d_in, "d_hidden": cfg.d_hidden,
            "n_classes": cfg.n_classes, "scale": scale,
            "edge_factor": edge_factor, "hosts": hosts}
@@ -2336,15 +2504,8 @@ def phase_train(device, workdir: str, *, scale: int = 18,
     if on_gpu:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-    state, losses, step_s, counts = state0, [], [], []
-    for _ in range(steps):
-        c0 = _k2_counts()
-        t0 = time.perf_counter()
-        state, met = step(state, batch)
-        losses.append(float(met["loss"]))
-        _cuda_sync(device)
-        step_s.append(time.perf_counter() - t0)
-        counts.append(tuple(b - a for a, b in zip(c0, _k2_counts())))
+    state, losses, step_s, counts = _timed_steps(step, state0, batch, steps,
+                                                 device)
     assert all(c == per_step for c in counts), (counts, per_step)
     if on_gpu:        # one more step, under the profiler
         out["step_split"] = train_step_split(step, state, batch)
@@ -2405,32 +2566,14 @@ def phase_train(device, workdir: str, *, scale: int = 18,
     out["k1_load_launches"] += sum(r.stats.partitions for r in pb.results) \
         if on_gpu else 0
 
-    def loss_grads():
-        p = {k: v.detach().requires_grad_() for k, v in params0.items()}
-        loss = gcn.loss_fn(p, pb.batch, cfg)
-        grads = torch.autograd.grad(loss, list(p.values()))
-        return float(loss.detach()), dict(zip(p, grads))
-
-    c0 = _k2_counts()
-    loss_k, grads_k = loss_grads()
-    c1 = _k2_counts()
-    with plain_segment_sum():
-        loss_p, grads_p = loss_grads()
-    assert _k2_counts() == c1 and (c1[0] - c0[0], c1[1] - c0[1]) == \
-        per_step, (c0, c1, _k2_counts())
-    assert abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p), \
-        f"first-step loss {loss_k} != plain path's {loss_p}"
     out["parity"] = {
         "scale": parity_scale, "vertices": pb.results[0].n_vertices,
-        "edges": int(pb.batch["edge_src"].numel()), "loss": loss_k,
-        "plain_loss": loss_p, "loss_rel_err": abs(loss_k - loss_p)
-        / abs(loss_p),
-        "grad_max_abs_err": {k: train_close(grads_k[k], grads_p[k],
-                                            f"first-step grad {k}")
-                             for k in grads_p}}
+        "edges": int(pb.batch["edge_src"].numel()),
+        **first_step_parity(lambda p: gcn.loss_fn(p, pb.batch, cfg),
+                            params0, per_step)}
     out["k2_launches"] += per_step[0]
     out["k2_grad_launches"] += per_step[1]
-    del pb, grads_k, grads_p
+    del pb
     if on_gpu:
         torch.cuda.empty_cache()
 
@@ -2485,6 +2628,393 @@ def phase_train(device, workdir: str, *, scale: int = 18,
     out["sampled_ids"] = b["edge_dst"]
     out["wall_s"] = time.perf_counter() - t_phase
     return out
+
+
+# ---------------------------------------------------------------------------
+# [gnn2]: PNA served and trained, MeshGraphNet and DimeNet trained, at
+# full width; every segment sum on K2, every gradient of one on k2_grad
+# ---------------------------------------------------------------------------
+
+def gnn2_pna_train(device, workdir: str, cfg, *, scale: int, edge_factor: int,
+                   hosts: int, steps: int, parity_scale: int,
+                   seed: int = 0) -> dict:
+    """PNA ``--full-graph`` on ``hosts`` simulated hosts over
+    ``ensure_gnn_assets(scale, edge_factor)`` (d_in 64, 10 classes): the
+    streamed load (K1 once a partition, nothing decoded on the host),
+    ``steps`` AdamW steps with the CLI's settings (K2's launches asserted
+    every step, the loss must fall), the peak, one more step under the
+    profiler; then the first step at ``parity_scale`` against the plain
+    path, its gradients held to the float64 plain path."""
+    from repro_torch.core import compbin as core_compbin
+    from repro_torch.data.multihost import aggregate_stats
+    from repro_torch.launch import train as tr
+    from repro_torch.models.gnn import pna
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    on_gpu = torch.device(device).type == "cuda"
+    per_step = k2_per_step("pna", cfg) if on_gpu else (0, 0)
+    k1_0 = compbin_decode.launches
+    host0 = core_compbin.host_decoded_bytes()
+    t0 = time.perf_counter()
+    fb = tr._gnn_full_graph_batches("pna", cfg, workdir, True, hosts,
+                                    device=device, scale=scale,
+                                    edge_factor=edge_factor)
+    load_s = time.perf_counter() - t0
+    agg = aggregate_stats(fb.results)
+    k1 = compbin_decode.launches - k1_0
+    assert core_compbin.host_decoded_bytes() == host0, "host decode"
+    assert k1 == (agg.partitions if on_gpu else 0), (k1, agg.partitions)
+    batch = fb.batch
+    n = fb.results[0].n_vertices
+    assert batch["x"].shape == (n, cfg.d_in) and \
+        int(batch["labels"].max()) < cfg.n_classes
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps,
+                          master_f32=True)
+    init_fn, step = tr._make_step("pna", cfg, opt_cfg, "gnn", device=device)
+    params0 = init_fn(seed)
+    state = {"params": params0, "opt": adamw_init(params0, opt_cfg)}
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    state, losses, secs, counts = _timed_steps(step, state, batch, steps,
+                                               device)
+    assert all(c == per_step for c in counts), (counts, per_step)
+    assert np.isfinite(losses).all(), losses
+    assert losses[-1] < losses[0], f"PNA full-graph loss did not fall: " \
+        f"{losses}"
+    out = {"vertices": n, "edges": agg.edges, "hosts": hosts,
+           "load_s": load_s, "losses": losses, "step_s": secs,
+           "step_p50_s": statistics.median(secs),
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                    if on_gpu else None),
+           "k1_launches": k1, "k2_per_step": list(per_step)}
+    ran = steps
+    if on_gpu:
+        out["step_split"] = train_step_split(step, state, batch)
+        ran += 1
+    out["full_graph_ids"] = batch["edge_dst"]
+    del state, fb, batch
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    k1_0 = compbin_decode.launches
+    pb = tr._gnn_full_graph_batches("pna", cfg, workdir, True, hosts,
+                                    device=device, scale=parity_scale,
+                                    edge_factor=edge_factor)
+    out["k1_launches"] += compbin_decode.launches - k1_0
+    out["parity"] = {
+        "graph": f"rmat({parity_scale}, {edge_factor})",
+        "vertices": pb.results[0].n_vertices,
+        "edges": int(pb.batch["edge_src"].numel()),
+        **first_step_parity(lambda p: pna.loss_fn(p, pb.batch, cfg),
+                            params0, per_step,
+                            exact=exact_plain_grads(pna, cfg, pb.batch,
+                                                    params0))}
+    ran += 1
+    out["k2_launches"], out["k2_grad_launches"] = (ran * per_step[0],
+                                                   ran * per_step[1])
+    return out
+
+
+def gnn2_graph(arch: str, size: int):
+    """``(name, CSR)`` of a full-batch step's graph: DimeNet's
+    ``rmat(size, 16)``; MeshGraphNet's ``bipartite_mesh(size, size)``,
+    the simulation mesh it models (in-degree <= 4).  On a power-law graph
+    its 15 residual layers, with no normalization, sum hub neighborhoods
+    past the f32 range: the full config's loss is inf on rmat(10, 16)
+    (in-degree up to 342) in the JAX package as in the port."""
+    from repro_torch.graph.generators import bipartite_mesh
+
+    if arch == "meshgraphnet":
+        return f"bipartite_mesh({size}, {size})", bipartite_mesh(size, size)
+    return f"rmat({size}, 16)", rmat(size, 16, seed=1)
+
+
+def gnn2_trained(arch: str, device, workdir: str, *, size: int,
+                 parity_size: int, steps: int, reduced: bool = False,
+                 seed: int = 0) -> dict:
+    """MeshGraphNet or DimeNet at full width unless ``reduced``: the
+    training CLI's run (``train.train``, the default mode: rmat(10, 8),
+    64 seeds, fanouts (5, 5)) for ``steps`` steps, K2's launches asserted;
+    then full-batch steps on ``full_graph_batch`` of
+    :func:`gnn2_graph`'s graph at ``size``: three timed, one under the
+    profiler; then the first step at ``parity_size`` held to the plain
+    path, its gradients to the float64 plain path
+    (:func:`first_step_parity`; the float64 run takes twice the f32
+    one's memory)."""
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.data_gnn import full_graph_batch
+    from repro_torch.launch.steps import _GNN_MODULES
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    on_gpu = torch.device(device).type == "cuda"
+    spec = get_arch(arch)
+    cfg = spec.make_reduced() if reduced else spec.make_config()
+    per_step = k2_per_step(arch, cfg) if on_gpu else (0, 0)
+    c0 = _k2_counts()
+    t0 = time.perf_counter()
+    run = tr.train(arch, steps=steps, reduced=reduced, device=device,
+                   workdir=os.path.join(workdir, "gnn2_train"),
+                   ckpt_dir=os.path.join(workdir, f"gnn2_ckpt_{arch}"))
+    cli_s = time.perf_counter() - t0
+    assert tuple(b - a for a, b in zip(c0, _k2_counts())) == (
+        steps * per_step[0], steps * per_step[1]), (c0, _k2_counts())
+    assert len(run["losses"]) == steps and np.isfinite(run["losses"]).all(), \
+        run["losses"]
+    out = {"arch": cfg.name, "d_hidden": cfg.d_hidden,
+           "n_bilinear": getattr(cfg, "n_bilinear", None),
+           "n_targets": getattr(cfg, "n_targets", None),
+           "cli_losses": run["losses"], "cli_wall_s": cli_s,
+           "cli_step_p50_s": statistics.median(run["step_times_s"]),
+           "k2_per_step": list(per_step)}
+    del run
+
+    graph, csr = gnn2_graph(arch, size)
+    batch = full_graph_batch(arch, cfg, csr, np.random.default_rng(seed),
+                             device=device)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps,
+                          master_f32=True)
+    init_fn, step = tr._make_step(arch, cfg, opt_cfg, "gnn", device=device)
+    params0 = init_fn(seed)
+    state = {"params": params0, "opt": adamw_init(params0, opt_cfg)}
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    state, losses, secs, counts = _timed_steps(step, state, batch, 3, device)
+    assert all(c == per_step for c in counts), (counts, per_step)
+    assert np.isfinite(losses).all(), losses
+    out.update(graph=graph, vertices=csr.n_vertices,
+               edges=int(batch["edge_src"].numel()),
+               full_batch_losses=losses, step_s=secs,
+               step_p50_s=statistics.median(secs[1:]),
+               max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                                     if on_gpu else None))
+    ran = steps + 3
+    if on_gpu:
+        out["step_split"] = train_step_split(step, state, batch)
+        ran += 1
+    ids = (batch["triplet_ji"], batch["graph_id"]) if arch == "dimenet" \
+        else (batch["edge_dst"],)
+    del state, batch
+    if on_gpu:
+        torch.cuda.empty_cache()
+    mod = _GNN_MODULES[arch]
+    pgraph, pcsr = gnn2_graph(arch, parity_size)
+    pbatch = full_graph_batch(arch, cfg, pcsr, np.random.default_rng(seed),
+                              device=device)
+    out["parity"] = {
+        "graph": pgraph, "vertices": pcsr.n_vertices,
+        "edges": int(pbatch["edge_src"].numel()),
+        **first_step_parity(lambda p: mod.loss_fn(p, pbatch, cfg), params0,
+                            per_step, exact=exact_plain_grads(
+                                mod, cfg, pbatch, params0))}
+    ran += 1
+    out["k2_launches"], out["k2_grad_launches"] = (ran * per_step[0],
+                                                   ran * per_step[1])
+    if arch == "dimenet":
+        out["triplet_ids"], out["graph_ids"] = ids
+    else:
+        (out["edge_ids"],) = ids
+    return out
+
+
+def phase_gnn2(device, workdir: str, *, scale: int = 18,
+               edge_factor: int = 16, hosts: int = 2, steps: int = 10,
+               parity_scale: int = 16, mgn_mesh: int = 450,
+               mgn_parity_mesh: int = 256, dimenet_scale: int = 16,
+               dimenet_parity_scale: int = 14, n_requests: int = 8,
+               batch: int = 1024, reduced: bool = False,
+               seed: int = 0) -> dict:
+    """The JAX package's other three GNNs, full width unless ``reduced``
+    (only the graphs are cut):
+
+    1. PNA serving: :func:`phase_gnn` with ``arch="pna"`` on
+       ``ensure_gnn_assets(scale, edge_factor)`` at d_in 64, 10 classes;
+       logits within ``GNN_TOL`` of the plain CPU path;
+    2. PNA training, :func:`gnn2_pna_train`;
+    3. MeshGraphNet (full batch on a ``mgn_mesh`` x ``mgn_mesh`` mesh,
+       parity on a ``mgn_parity_mesh`` one) and DimeNet (rmat(
+       ``dimenet_scale``, 16), parity at ``dimenet_parity_scale``),
+       :func:`gnn2_trained`.
+
+    Returns each part's results, the main path's K1 / K2 / k2_grad
+    launches, and the ids of the new K2 shapes for their timing."""
+    t0 = time.perf_counter()
+    spec = get_arch("pna")
+    cfg = spec.make_reduced() if reduced else spec.make_config()
+    serve = phase_gnn(device, workdir, scale=scale, edge_factor=edge_factor,
+                      reduced=reduced, n_requests=n_requests, batch=batch,
+                      seed=seed, arch="pna")
+    pna_train = gnn2_pna_train(device, workdir, cfg, scale=scale,
+                               edge_factor=edge_factor, hosts=hosts,
+                               steps=steps, parity_scale=parity_scale,
+                               seed=seed)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    mgn = gnn2_trained("meshgraphnet", device, workdir, size=mgn_mesh,
+                       parity_size=mgn_parity_mesh, steps=steps,
+                       reduced=reduced, seed=seed)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    dime = gnn2_trained("dimenet", device, workdir, size=dimenet_scale,
+                        parity_size=dimenet_parity_scale, steps=steps,
+                        reduced=reduced, seed=seed)
+    parts = (pna_train, mgn, dime)
+    return {
+        "serve": serve, "pna_train": pna_train, "meshgraphnet": mgn,
+        "dimenet": dime, "pna_cfg": {"d_in": cfg.d_in,
+                                     "d_hidden": cfg.d_hidden,
+                                     "n_classes": cfg.n_classes,
+                                     "n_layers": cfg.n_layers},
+        "k1_launches": serve["k1_launches"] + pna_train["k1_launches"],
+        "k2_launches": serve["k2_launches"]
+        + sum(p["k2_launches"] for p in parts),
+        "k2_grad_launches": sum(p["k2_grad_launches"] for p in parts),
+        "wall_s": time.perf_counter() - t0}
+
+
+def gnn2_k2_shapes(g2: dict) -> dict:
+    """The K2 shapes ``[gnn2]`` gives the kernel, by label: ``(ids, N, D,
+    backward)`` with ``backward`` True where training gathers K2's
+    gradient at that shape.  Takes the ids out of ``g2``."""
+    srv, pt = g2["serve"], g2["pna_train"]
+    mgn, dime = g2["meshgraphnet"], g2["dimenet"]
+    d_pna = g2["pna_cfg"]["d_hidden"]
+    dev = pt["full_graph_ids"].device
+    return {
+        "pna_served": (torch.from_numpy(srv.pop("edge_dst")).to(dev),
+                       srv.pop("n_nodes"), d_pna, False),
+        "pna_full_graph": (pt.pop("full_graph_ids"), pt["vertices"], d_pna,
+                           True),
+        "meshgraphnet": (mgn.pop("edge_ids"), mgn["vertices"],
+                         mgn["d_hidden"], True),
+        "dimenet_triplets": (dime.pop("triplet_ids"), dime["edges"],
+                             dime["n_bilinear"], True),
+        "dimenet_readout": (dime.pop("graph_ids"), 1, dime["n_targets"],
+                            True)}
+
+
+def check_k2_shapes(shapes: dict, seed: int = 6) -> dict:
+    """K2 at each of ``shapes`` (:func:`gnn2_k2_shapes`): small-integer
+    messages (every order of the adds gives the same f32 sums), so each
+    design and the public path are held to the plain version bit for bit,
+    and the backward (where the shape has one) too.  Returns the checks
+    made by label."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for label, (ids, n, d, backward) in shapes.items():
+        msgs = _k2_messages(ids.numel(), d, True, rng, ids.device,
+                            torch.float32)
+        want = segment_sum_ref(msgs, ids, n)
+        for design in K2_DESIGNS:
+            got = _segment_sum_design(msgs, ids, n, design)
+            assert torch.equal(got, want), \
+                f"segment_sum {design} at {label} != plain version"
+        assert torch.equal(segment_sum(msgs, ids, n), want), \
+            f"segment_sum at {label} != plain version"
+        checks = len(K2_DESIGNS) + 1
+        del msgs, want
+        if backward:
+            grad = _k2_messages(n, d, True, rng, ids.device, torch.float32)
+            assert torch.equal(segment_sum_backward(grad, ids, n),
+                               segment_sum_grad_ref(grad, ids, n)), \
+                f"segment_sum backward at {label} != plain version"
+            checks += 1
+        out[label] = {"e": ids.numel(), "n": n, "d": d, "checks": checks}
+    return out
+
+
+def log_gnn2(g2: dict) -> None:
+    """The ``[gnn2]`` lines of :func:`phase_gnn2`'s results."""
+    srv, pt = g2["serve"], g2["pna_train"]
+    pc = g2["pna_cfg"]
+    log(f"[gnn2] pna (d_in {pc['d_in']}, d_hidden {pc['d_hidden']}, "
+        f"{pc['n_layers']} layers, {pc['n_classes']} classes) served on "
+        f"rmat({srv['scale']}, {srv['edge_factor']}): {srv['requests']} "
+        f"requests of {srv['batch']} seeds, {srv['nodes_per_request']} "
+        f"nodes, {srv['edge_slots_per_request']} edge slots; p50 "
+        f"{srv['p50_s'] * 1e3:.3f} ms, p99 {srv['p99_s'] * 1e3:.3f} ms, "
+        f"first {srv['first_request_s'] * 1e3:.3f} ms; K1 launches "
+        f"{srv['k1_launches']}, K2 {srv['k2_launches']}; logits within "
+        f"{GNN_TOL} of the plain CPU path (max abs err "
+        f"{srv['max_abs_err']:.3g}); assets {srv['assets_s']:.1f} s; "
+        f"exclusive ms per request by tier: " + ", ".join(
+            f"{t} {sec * 1e3:.3f}" for t, sec in
+            sorted(srv["tier_s_per_request"].items())))
+    par = pt["parity"]
+    log(f"[gnn2] pna --full-graph on {pt['hosts']} simulated hosts "
+        f"({pt['vertices']} vertices, {pt['edges']} edges, load "
+        f"{pt['load_s']:.3f} s, K1 {pt['k1_launches']}): "
+        f"{len(pt['losses'])} AdamW steps, loss {pt['losses'][0]:.6f} -> "
+        f"{pt['losses'][-1]:.6f}; step p50 {pt['step_p50_s'] * 1e3:.3f} "
+        f"ms (steps " + ", ".join(f"{t * 1e3:.1f}" for t in pt["step_s"])
+        + f" ms); max_memory_allocated {pt['max_memory_allocated']} B; "
+        f"K2 a step: {pt['k2_per_step'][0]} forward, "
+        f"{pt['k2_per_step'][1]} backward (asserted every step)")
+    for name, r in (("pna", pt), ("meshgraphnet", g2["meshgraphnet"]),
+                    ("dimenet", g2["dimenet"])):
+        par = r["parity"]
+        log(f"[gnn2] {name} first step on {par['graph']} "
+            f"({par['vertices']} vertices, {par['edges']} edges): loss "
+            f"{par['loss']:.7g} vs plain {par['plain_loss']:.7g} (rel err "
+            f"{par['loss_rel_err']:.3g} <= {TRAIN_LOSS_RTOL}); grads within "
+            f"({EXACT_FACTOR} x {par['plain_relative_distance']:.3g} + "
+            f"{TRAIN_GRAD_TOL[1]}) x max|g| of the float64 plain path, "
+            f"{par['plain_relative_distance']:.3g} being the f32 plain "
+            f"path's worst relative distance (max abs err kernel / plain: "
+            + ", ".join(
+                f"{k} {v:.3g} / {par['plain_max_abs_err_vs_f64'][k]:.3g}"
+                for k, v in par["grad_max_abs_err_vs_f64"].items()) + ")")
+    for r in (pt, g2["meshgraphnet"], g2["dimenet"]):
+        sp = r.get("step_split") or {}
+        log(f"[gnn2] {r.get('arch', 'pna')} one full-graph step "
+            f"(torch.profiler): wall {sp.get('wall_ms', float('nan')):.3f}"
+            f" ms; device " + (
+                "not measured (no device time in the trace)"
+                if not sp.get("device_ms") else ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in sp["device_ms"].items())
+                + f"; idle share {sp['idle_share']:.3f}; top kernels "
+                f"(ms, launches, name): " + "; ".join(
+                    f"{ms:.3f} {n} {name}" for ms, n, name in
+                    sp["top_kernels"])))
+    for arch in ("meshgraphnet", "dimenet"):
+        r = g2[arch]
+        log(f"[gnn2] {r['arch']} (d_hidden {r['d_hidden']}): the CLI's "
+            f"default mode, {len(r['cli_losses'])} steps of 64 seeds on "
+            f"rmat(10, 8), loss {r['cli_losses'][0]:.6f} -> "
+            f"{r['cli_losses'][-1]:.6f}, step p50 "
+            f"{r['cli_step_p50_s'] * 1e3:.3f} ms; full batch on "
+            f"{r['graph']} ({r['vertices']} vertices, "
+            f"{r['edges']} edges): step p50 {r['step_p50_s'] * 1e3:.3f} ms "
+            f"(steps " + ", ".join(f"{t * 1e3:.1f}" for t in r["step_s"])
+            + f" ms), max_memory_allocated {r['max_memory_allocated']} B; "
+            f"K2 a step {r['k2_per_step'][0]} forward, "
+            f"{r['k2_per_step'][1]} backward (asserted every step)")
+
+
+def log_k2_shape(label: str, r: dict) -> None:
+    """The ``[kernel]`` lines of K2 (and its backward, where timed) at
+    one of ``[gnn2]``'s shapes."""
+    log(f"[kernel] segment_sum {label}: f32[{r['e']},{r['d']}] -> "
+        f"f32[{r['n']},{r['d']}] ({r['valid_edges']} valid); plan "
+        f"picks {r['design']}, fastest {r['fastest']}; " + "; ".join(
+            f"{m} {v['ms']:.4f} ms" for m, v in r["designs"].items())
+        + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"{r['gb_per_s']:.1f} GB/s; plain {r['plain_ms']:.4f} ms; "
+        f"library_ms (index_add_) {r['library_ms']:.4f}; bit for bit "
+        f"equal to the plain version (integer messages)")
+    if "backward" in r:
+        b = r["backward"]
+        log(f"[kernel] segment_sum backward {label}: grad f32[{b['n']},"
+            f"{b['d']}] gathered by int32[{b['e']}] "
+            f"({b['valid_edges']} valid, {b['grad_rows_read']} "
+            f"distinct rows): kernel {b['ms']:.4f} ms at VEC "
+            f"{b['vec']}  bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})  {b['gb_per_s']:.1f} GB/s  plain "
+            f"{b['plain_ms']:.4f} ms  library_ms "
+            f"{b['library_ms']:.4f} ({b['library_call']}); bit for "
+            f"bit equal to the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -2563,7 +3093,8 @@ def main(argv=None) -> int:
                     help="RMAT scale of the graph GCN serving reads "
                          "(edge factor 16, gcn-cora's full width)")
     ap.add_argument("--gnn-requests", type=int, default=8,
-                    help="GCN inference requests of 1024 seeds each")
+                    help="GCN (and PNA) inference requests of 1024 seeds "
+                         "each")
     ap.add_argument("--lm-batch", type=int, default=8,
                     help="prompts per LM serving batch (smollm-360m, full "
                          "width and depth, bf16)")
@@ -3080,6 +3611,47 @@ def main(argv=None) -> int:
         del flush, full_ids, grad_cases
         torch.cuda.empty_cache()
 
+        # phase 15b: [gnn2] PNA served and trained, MeshGraphNet and
+        # DimeNet trained, at full width; K1's and both of K2's counts
+        # zeroed just before and read just after
+        gc.collect()
+        torch.cuda.empty_cache()
+        compbin_decode.launches = 0
+        segment_sum.launches = segment_sum.grad_launches = 0
+        g2 = phase_gnn2(device, workdir, scale=args.gnn_scale,
+                        n_requests=args.gnn_requests)
+        g2_k1, g2_k2, g2_k2b = (compbin_decode.launches, segment_sum.launches,
+                                segment_sum.grad_launches)
+        assert (g2_k1, g2_k2, g2_k2b) == (
+            g2["k1_launches"], g2["k2_launches"], g2["k2_grad_launches"]), \
+            (g2_k1, g2_k2, g2_k2b, g2)
+        assert g2_k1 > 0 and g2_k2 > 0 and g2_k2b > 0
+        log_gnn2(g2)
+        log(f"[gnn2] main-path launches: K1 {g2_k1}, K2 forward {g2_k2}, K2 "
+            f"backward {g2_k2b}; phase wall {g2['wall_s']:.1f} s")
+
+        # phase 15c: K2 and its backward at [gnn2]'s shapes, each held to
+        # its plain version bit for bit (integer messages), then timed
+        shapes = gnn2_k2_shapes(g2)
+        k2_shape_checks = check_k2_shapes(shapes)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        gc.collect()
+        torch.cuda.empty_cache()
+        flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+        k2n = {}
+        for label, (ids_t, n, d, backward) in shapes.items():
+            r = k2n[label] = measure_segment_sum_full_graph(
+                ids_t, n, (d,), flush, gen)["widths"][d]
+            r["checks"] = k2_shape_checks[label]["checks"]
+            if backward:
+                r["backward"] = measure_segment_sum_grad(ids_t, d, n, flush,
+                                                         gen)
+            log_k2_shape(label, r)
+        del flush, shapes
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # phase 16: [compile] the load file through the graph compiler,
         # the hot-set trace through a cold engine on the compiled file;
         # K1's count zeroed just before and read just after
@@ -3106,7 +3678,8 @@ def main(argv=None) -> int:
             f"{comp['query_batches']}; {comp['ids_checked']} ids mapped back "
             f"equal the original CSR as int64")
     results.update(load=load, serve=serve, logcsr=logcsr, hotset=hot,
-                   traversal=trav, crossover=cross, train=trn,
+                   traversal=trav, crossover=cross, train=trn, gnn2=g2,
+                   segment_sum_gnn2=k2n,
                    segment_sum_full_graph=k2f,
                    segment_sum_backward=k2g, compile=comp,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
@@ -3129,14 +3702,14 @@ def main(argv=None) -> int:
         "name": "compbin_decode", "route": "cuda", "source": CUDA_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": (main_path_launches + hot_k1 + trav_k1 + gnn_k1
-                     + train_k1 + comp_k1),
+                     + train_k1 + g2_k1 + comp_k1),
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
         "shape": f"uint8[{k1['n']}*{k1['b']}] -> int32[{k1['n']}]",
     }, {
         "name": "segment_sum", "route": "cuda", "source": K2_CUDA_SOURCE,
-        "replaces": K2_TPU_KERNEL, "launches": gnn_k2 + train_k2,
+        "replaces": K2_TPU_KERNEL, "launches": gnn_k2 + train_k2 + g2_k2,
         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
         "ms": k2["layer0"]["ms"], "plain_ms": k2["layer0"]["plain_ms"],
         "bound_ms": k2["layer0"]["bound_ms"],
@@ -3162,12 +3735,17 @@ def main(argv=None) -> int:
             "plain_ms", "library_ms", "bound_ms", "bound_by", "gb_per_s")}
             | {m: v["ms"] for m, v in r["designs"].items()}
             for d, r in k2f["widths"].items()},
+        "gnn2": {label: {key: r[key] for key in (
+            "e", "d", "n", "valid_edges", "design", "fastest", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "gb_per_s")}
+            | {m: v["ms"] for m, v in r["designs"].items()}
+            for label, r in k2n.items()},
     }, {
         "name": "segment_sum_backward", "route": "cuda",
         "source": K2_CUDA_SOURCE, "replaces": K2_TPU_KERNEL,
         "note": ("K2's backward (a gather); the JAX package trains through "
                  "XLA's segment_sum and has no backward kernel"),
-        "launches": train_k2b, "max_abs_err": 0.0,
+        "launches": train_k2b + g2_k2b, "max_abs_err": 0.0,
         "ms": k2g["full_graph"]["ms"],
         "plain_ms": k2g["full_graph"]["plain_ms"],
         "bound_ms": k2g["full_graph"]["bound_ms"],
@@ -3183,7 +3761,12 @@ def main(argv=None) -> int:
             "e", "d", "n", "valid_edges", "grad_rows_read", "vec", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "library", "k2_launches_per_call",
-            "cuda_launches_per_call")} for label, r in k2g.items()},
+            "cuda_launches_per_call")} for label, r in k2g.items()}
+        | {label: {key: r["backward"][key] for key in (
+            "e", "d", "n", "valid_edges", "grad_rows_read", "vec", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "library")} for label, r in k2n.items()
+            if "backward" in r},
     }, {
         "name": "flash_attention", "route": "cuda", "source": K3_CUDA_SOURCE,
         "replaces": K3_TPU_KERNEL, "launches": lm_k3,

@@ -1,23 +1,25 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers.  Ported: ``gcn-cora`` and the dense LMs (``smollm-360m``,
-``qwen2-1.5b``, ``stablelm-1.6b``); the JAX package's other
-architectures raise ``KeyError`` saying so."""
+launchers.  Ported: the GNNs (``gcn-cora``, ``pna``, ``meshgraphnet``,
+``dimenet``) and the dense LMs (``smollm-360m``, ``qwen2-1.5b``,
+``stablelm-1.6b``), in the JAX package's order; its other architectures
+raise ``KeyError`` saying so."""
 
 from __future__ import annotations
 
-from repro_torch.configs import (gcn_cora, qwen2_1_5b, shapes,  # noqa: F401
+from repro_torch.configs import (dimenet, gcn_cora,  # noqa: F401
+                                 meshgraphnet, pna, qwen2_1_5b, shapes,
                                  smollm_360m, stablelm_1_6b)
 from repro_torch.configs.base import ArchSpec
 
-_MODULES = [smollm_360m, qwen2_1_5b, stablelm_1_6b, gcn_cora]
+_MODULES = [smollm_360m, qwen2_1_5b, stablelm_1_6b, dimenet, meshgraphnet,
+            gcn_cora, pna]
 
 REGISTRY: dict[str, ArchSpec] = {m.SPEC.arch_id: m.SPEC for m in _MODULES}
 
 ARCH_IDS = list(REGISTRY)
 
 #: the JAX package's architectures that this port does not hold yet
-NOT_PORTED = ("qwen2-moe-a2.7b", "dbrx-132b", "dimenet", "meshgraphnet",
-              "pna", "din")
+NOT_PORTED = ("qwen2-moe-a2.7b", "dbrx-132b", "din")
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.csr import CSR
 from repro_torch.kernels.utils import resolve_device
+from repro_torch.optim.adamw import tree_map
 
 
 def csr_from_numpy(offsets, neighbors) -> CSR:
@@ -48,31 +49,42 @@ def stats_ints(stats) -> dict:
     return out
 
 
+def gnn_params_from_numpy(params: dict, device=None) -> dict:
+    """The JAX package's params of any of its GNNs -- a dict of numpy
+    arrays, nested as the model keeps them (MeshGraphNet's ``node_enc``,
+    DimeNet's ``block{i}``), e.g. ``jax.tree_util.tree_map(np.asarray,
+    jax_params)`` -- as the port's params: the same keys and nesting,
+    float32 tensors on ``device`` (None = the GPU, raises without
+    one)."""
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+    return conv(params)
+
+
 def gcn_params_from_numpy(params: dict, device=None) -> dict:
     """The JAX package's GCN params (``{"w0": ..., "b0": ..., ...}`` as
-    numpy arrays, e.g. ``{k: np.asarray(v) for k, v in jax_params.items()}``)
-    as the port's params dict: the same keys, float32 tensors on
-    ``device`` (None = the GPU, raises without one)."""
-    device = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
-            for k, v in params.items()}
+    numpy arrays) as the port's: :func:`gnn_params_from_numpy`."""
+    return gnn_params_from_numpy(params, device)
 
 
 def adamw_state_from_numpy(state: dict, device=None) -> dict:
     """The JAX package's AdamW state (``{"step", "m", "v"[, "master"]}``
-    with the moments shaped like the params, as numpy arrays, e.g.
-    ``jax.tree_util.tree_map(np.asarray, opt)``) as the port's: ``step``
+    with the moments shaped and nested like the params, as numpy arrays,
+    e.g. ``jax.tree_util.tree_map(np.asarray, opt)``) as the port's: ``step``
     an int32 0-d tensor, every other leaf a float32 tensor, on ``device``
     (None = the GPU, raises without one)."""
     device = resolve_device(device)
 
-    def t(a, dtype):
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
-
-    out = {"step": t(state["step"], np.int32)}
+    out = {"step": torch.from_numpy(
+        np.array(state["step"], dtype=np.int32)).to(device)}
     for key in ("m", "v", "master"):
         if key in state:
-            out[key] = {k: t(v, np.float32) for k, v in state[key].items()}
+            out[key] = gnn_params_from_numpy(state[key], device)
     return out
 
 
@@ -84,8 +96,8 @@ def adamw_state_to_numpy(state: dict) -> dict:
                               dtype=np.int32)}
     for key in ("m", "v", "master"):
         if key in state:
-            out[key] = {k: v.detach().cpu().numpy()
-                        for k, v in state[key].items()}
+            out[key] = tree_map(lambda v: v.detach().cpu().numpy(),
+                                state[key])
     return out
 
 

@@ -5,8 +5,10 @@ Serving: assets, the block's edge index, the store-gathered batch and
 its one-pass transfer to the device.  Training: the sampled block with
 stand-in features (:func:`block_to_batch`), the full-graph batch built
 on the device from streamed shards (:func:`streamed_graph_batch`), and
-the one from an in-memory CSR (:func:`full_graph_batch`).  The JAX
-package's meshgraphnet / dimenet fields come with those models.
+the one from an in-memory CSR (:func:`full_graph_batch`).  Only the
+last and :func:`block_to_batch` build the fields MeshGraphNet and
+DimeNet read (:data:`MODEL_FIELDS`), as in the JAX package; the other
+paths refuse those models (:func:`refuse_unbuilt_fields`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,51 @@ import torch
 from repro_torch.core.csr import CSR
 from repro_torch.graph.sampler import SampledBlock
 from repro_torch.kernels.utils import resolve_device
+
+
+#: the batch fields beyond ``x`` / ``edge_src`` / ``edge_dst`` that a
+#: model's forward and loss read and that only :func:`block_to_batch` and
+#: :func:`full_graph_batch` build (:func:`model_fields`)
+MODEL_FIELDS = {
+    "meshgraphnet": ("edge_attr", "targets"),
+    "dimenet": ("pos", "triplet_kj", "triplet_ji", "graph_id", "n_graphs",
+                "targets"),
+}
+
+
+def model_fields(arch_id: str, cfg, n: int, n_edges: int, rng) -> dict:
+    """:data:`MODEL_FIELDS` of ``arch_id`` as numpy, drawn from ``rng`` in
+    the JAX package's order: MeshGraphNet's random edge features and
+    node targets; DimeNet's positions, 2E random triplets of edge ids,
+    one graph and its target.  Empty for the other models."""
+    if arch_id == "meshgraphnet":
+        return {"edge_attr": rng.standard_normal(
+                    (n_edges, cfg.d_edge_in)).astype(np.float32),
+                "targets": rng.standard_normal((n, cfg.d_out)).astype(
+                    np.float32)}
+    if arch_id == "dimenet":
+        pos = rng.standard_normal((n, 3)).astype(np.float32)
+        return {"pos": pos,
+                "triplet_kj": rng.integers(0, n_edges, 2 * n_edges).astype(
+                    np.int32),
+                "triplet_ji": rng.integers(0, n_edges, 2 * n_edges).astype(
+                    np.int32),
+                "graph_id": np.zeros(n, np.int32),
+                "targets": rng.standard_normal((1, 1)).astype(np.float32),
+                "n_graphs": 1}
+    return {}
+
+
+def refuse_unbuilt_fields(arch_id: str, path: str) -> None:
+    """Exit at once, naming the fields, where ``path`` (serving,
+    ``--full-graph``, ``--sampled``) builds none of the batch fields
+    ``arch_id`` needs.  The JAX package runs on into a ``KeyError`` deep
+    inside ``forward`` there."""
+    fields = MODEL_FIELDS.get(arch_id)
+    if fields:
+        raise SystemExit(
+            f"{arch_id}: {path} builds no {', '.join(fields)} batch fields; "
+            f"{arch_id} trains in the default minibatch mode only")
 
 
 def ensure_gnn_assets(workdir: str, d_in: int, n_classes: int, *,
@@ -108,15 +155,21 @@ def block_to_batch(arch_id: str, cfg, block: SampledBlock, rng, *,
         mask[:n_seeds] = True
         batch["labels"] = labels
         batch["label_mask"] = mask
+    else:
+        batch.update(model_fields(arch_id, cfg, n, len(src), rng))
+        if arch_id == "meshgraphnet":
+            batch["node_mask"] = np.arange(n) < n_seeds
     return device_batch(batch, device)
 
 
 def device_batch(np_batch: dict, device=None) -> dict:
     """Ship a whole numpy batch dict to ``device`` in one pass: one
-    ``torch.from_numpy(...).to(device)`` per tensor, nothing else
+    ``torch.from_numpy(...).to(device)`` per array, nothing else; a
+    Python value (DimeNet's ``n_graphs``) passes through unchanged
     (``device=None`` means the GPU and raises without one)."""
     device = resolve_device(device)
-    return {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()}
+    return {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+            else v for k, v in np_batch.items()}
 
 
 def sampled_host_batch(arch_id: str, cfg, block: SampledBlock, feats,
@@ -312,4 +365,6 @@ def full_graph_batch(arch_id: str, cfg, csr: CSR, rng, *,
     if arch_id in ("gcn-cora", "pna"):
         batch["labels"] = rng.integers(0, n_classes, n)
         batch["label_mask"] = rng.random(n) < 0.3
+    else:
+        batch.update(model_fields(arch_id, cfg, n, len(src), rng))
     return device_batch(batch, device)

@@ -10,13 +10,17 @@ sharded and with the device-resident hot-set tier.
     python -m repro_torch.launch.serve --arch gcn-cora --reduced --requests 8
     python -m repro_torch.launch.serve --arch gcn-cora --requests 8 \\
         --batch 1024 --scale 18 --edge-factor 16 --trace-sample 4
+    python -m repro_torch.launch.serve --arch pna --requests 8 \\
+        --batch 1024 --scale 18 --edge-factor 16
     python -m repro_torch.launch.serve --arch gcn-cora --reduced \\
         --traversal --requests 32 --batch 8 --shards 2 --replication 2 \\
         --hotset-bytes 1048576
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions).  The
 JAX package's MoE LMs and its DIN serving are not ported yet: asking for
-them exits with a message saying so.
+them exits with a message saying so.  GNN serving takes ``gcn-cora`` and
+``pna``; the served batch carries none of MeshGraphNet's or DimeNet's
+fields, so those exit saying which.
 """
 
 from __future__ import annotations
@@ -178,8 +182,8 @@ def make_gnn_server(arch_id: str, cfg, workdir: str, *,
     gather from the column-family store on the SAME PG-Fuse mount, one
     transfer of the whole batch to the device
     (``data_gnn.sampled_store_batch``, split in its host half and
-    ``device_batch`` so the two can be timed apart), GCN forward (its
-    segment sums on the segment-sum kernel) under
+    ``device_batch`` so the two can be timed apart), the model's forward
+    (GCN or PNA; its segment sums on the segment-sum kernel) under
     ``torch.inference_mode()`` — and returns
     the seeds' logits as a numpy array.  The mount runs the random-access
     policy (:func:`repro_torch.core.policy.choose_access_mode`).  The
@@ -209,11 +213,13 @@ def make_gnn_server(arch_id: str, cfg, workdir: str, *,
     from repro_torch.graph import NeighborSampler
     from repro_torch.kernels.utils import resolve_device
     from repro_torch.launch.data_gnn import (device_batch, ensure_gnn_assets,
+                                             refuse_unbuilt_fields,
                                              sampled_host_batch)
     from repro_torch.launch.steps import _GNN_MODULES
     from repro_torch.obs.trace import NULL_TRACER
     from repro_torch.query import NeighborQueryEngine
 
+    refuse_unbuilt_fields(arch_id, "serving")
     device = resolve_device(device)
     d_in = getattr(cfg, "d_in", getattr(cfg, "d_node_in", 16))
     n_classes = getattr(cfg, "n_classes", 7)

@@ -3,13 +3,19 @@ CompBin.
 
 Wires together ParaGrapher/CompBin/PG-Fuse data loading (sampled
 minibatches, the random-access query engine, or the full graph streamed
-on simulated hosts), the GCN with the segment-sum kernel and its
+on simulated hosts), the GNNs with the segment-sum kernel and its
 backward, AdamW, async checkpointing with restart-from-latest and
 straggler monitoring.
 
     python -m repro_torch.launch.train --arch gcn-cora --reduced --device cpu --steps 20
-    python -m repro_torch.launch.train --arch gcn-cora --full-graph --hosts 2 --steps 10
-    python -m repro_torch.launch.train --arch gcn-cora --sampled --steps 10
+    python -m repro_torch.launch.train --arch pna --full-graph --hosts 2 --steps 10
+    python -m repro_torch.launch.train --arch pna --sampled --steps 10
+    python -m repro_torch.launch.train --arch meshgraphnet --steps 10
+    python -m repro_torch.launch.train --arch dimenet --steps 10
+
+MeshGraphNet and DimeNet train in the default minibatch mode only: the
+``--full-graph`` and ``--sampled`` batches carry none of their fields,
+and asking for them exits saying so.
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions); the
 default is the GPU, and without one it raises.  The JAX package's LM and
@@ -114,9 +120,11 @@ def _gnn_sampled_batches(arch_id: str, cfg, tmpdir: str, use_pgfuse: bool,
     from repro_torch.core import featstore, paragrapher, policy
     from repro_torch.graph import NeighborSampler
     from repro_torch.launch.data_gnn import (ensure_gnn_assets,
+                                             refuse_unbuilt_fields,
                                              sampled_store_batch)
     from repro_torch.query import NeighborQueryEngine
 
+    refuse_unbuilt_fields(arch_id, "--sampled")
     device = resolve_device(device)
     d_in = getattr(cfg, "d_in", getattr(cfg, "d_node_in", 16))
     n_classes = getattr(cfg, "n_classes", 7)
@@ -189,8 +197,10 @@ def _gnn_full_graph_batches(arch_id: str, cfg, tmpdir: str, use_pgfuse: bool,
     from repro_torch.data.multihost import (aggregate_stats, all_shards,
                                             simulate_hosts)
     from repro_torch.launch.data_gnn import (ensure_gnn_assets,
+                                             refuse_unbuilt_fields,
                                              streamed_graph_batch)
 
+    refuse_unbuilt_fields(arch_id, "--full-graph")
     device = resolve_device(device)
     block_size = 1 << 16
     d_in = getattr(cfg, "d_in", getattr(cfg, "d_node_in", 16))

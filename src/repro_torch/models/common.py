@@ -1,8 +1,7 @@
 """Shared model building blocks (plain functions over tensors).
 
-Ported so far: ``dense_init`` and ``cross_entropy_loss`` (GCN),
-``rms_norm`` and ``layer_norm`` (the transformer).  The JAX package's
-``mlp`` and ``init_mlp`` come with the models that use them.
+``dense_init``, ``mlp`` / ``init_mlp`` and ``cross_entropy_loss`` (the
+GNNs), ``rms_norm`` and ``layer_norm`` (the transformer).
 """
 
 from __future__ import annotations
@@ -42,6 +41,34 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def mlp(params_prefix: dict, x: torch.Tensor, names: list[str],
+        act=torch.relu, final_act=None) -> torch.Tensor:
+    """Apply a stack of dense layers ``names`` from a params dict holding
+    ``{name}_w`` / ``{name}_b``: ``act`` between layers, ``final_act``
+    (if any) after the last."""
+    for i, n in enumerate(names):
+        x = x @ params_prefix[f"{n}_w"] + params_prefix[f"{n}_b"]
+        if i < len(names) - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
+
+
+def init_mlp(generator: torch.Generator, sizes: list[int], names: list[str],
+             dtype=torch.float32, device=None) -> dict:
+    """``{name}_w`` (truncated-normal fan-in, ``sizes[i] x sizes[i+1]``)
+    and zero ``{name}_b`` for each layer of :func:`mlp`."""
+    if len(sizes) != len(names) + 1:
+        raise ValueError(f"{len(sizes)} sizes for {len(names)} layers")
+    out = {}
+    for i, n in enumerate(names):
+        out[f"{n}_w"] = dense_init(generator, (sizes[i], sizes[i + 1]),
+                                   dtype=dtype, device=device)
+        out[f"{n}_b"] = torch.zeros(sizes[i + 1], dtype=dtype, device=device)
+    return out
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

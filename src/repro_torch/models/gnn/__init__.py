@@ -1,1 +1,1 @@
-from repro_torch.models.gnn import gcn  # noqa: F401
+from repro_torch.models.gnn import dimenet, gcn, meshgraphnet, pna  # noqa: F401

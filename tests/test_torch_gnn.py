@@ -170,7 +170,8 @@ def test_configs_and_params_mirror_the_reference():
     assert (spec.arch_id, spec.family, spec.citation) == \
         (ref_spec.arch_id, ref_spec.family, ref_spec.citation)
     assert port_configs.ARCH_IDS == ["smollm-360m", "qwen2-1.5b",
-                                     "stablelm-1.6b", "gcn-cora"]
+                                     "stablelm-1.6b", "dimenet",
+                                     "meshgraphnet", "gcn-cora", "pna"]
     for make in ("make_config", "make_reduced"):
         a, b = getattr(spec, make)(), getattr(ref_spec, make)()
         for f in dataclasses.fields(b):
@@ -184,12 +185,15 @@ def test_configs_and_params_mirror_the_reference():
         for k in r:
             assert tuple(p[k].shape) == r[k].shape and p[k].dtype == torch.float32
     assert set(spec.shapes) == set(ref_spec.shapes)
-    for arch in ("pna", "qwen2-moe-a2.7b", "din", "dimenet"):
+    for arch in ("qwen2-moe-a2.7b", "dbrx-132b", "din"):
         with pytest.raises(KeyError, match="not ported yet"):
             port_configs.get_arch(arch)
+    assert port_configs.NOT_PORTED == ("qwen2-moe-a2.7b", "dbrx-132b", "din")
     with pytest.raises(KeyError, match="unknown arch"):
         port_configs.get_arch("no-such-arch")
-    assert _GNN_MODULES == {"gcn-cora": port_gcn}
+    from repro_torch.models.gnn import dimenet, meshgraphnet, pna
+    assert _GNN_MODULES == {"gcn-cora": port_gcn, "pna": pna,
+                            "dimenet": dimenet, "meshgraphnet": meshgraphnet}
     assert port_configs.all_cells() == [
         c for c in __import__("repro.configs", fromlist=["x"]).all_cells()
         if c[0] in port_configs.ARCH_IDS]
@@ -204,3 +208,25 @@ def test_dense_init_is_a_truncated_fan_in_normal():
     a = dense_init(torch.Generator().manual_seed(1), (8, 4))
     b = dense_init(torch.Generator().manual_seed(1), (8, 4))
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch,fields", [
+    ("meshgraphnet", "edge_attr, targets"),
+    ("dimenet", "pos, triplet_kj, triplet_ji, graph_id, n_graphs, targets")])
+@pytest.mark.parametrize("path", ["serving", "--full-graph", "--sampled"])
+def test_paths_without_the_fields_refuse_meshgraphnet_and_dimenet(
+        tmp_path, arch, fields, path):
+    """Serving, ``--full-graph`` and ``--sampled`` build none of these
+    models' fields: the CLI exits at once saying which (the JAX package
+    runs on into a ``KeyError`` inside ``forward``), before any asset is
+    written."""
+    from repro_torch.launch import serve, train
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--workdir",
+            str(tmp_path)]
+    msg = f"{arch}: {path} builds no {fields} batch fields"
+    with pytest.raises(SystemExit, match=msg):
+        if path == "serving":
+            serve.main(argv + ["--requests", "1"])
+        else:
+            train.main(argv + [path, "--steps", "1"])
+    assert not any(tmp_path.iterdir())

@@ -8,8 +8,10 @@ sum: f32 rtol 1e-5 / atol 1e-4, bf16 inputs 2e-2 / 2e-1 (atomics add in
 no fixed order; the rows design on sorted ids is held bit for bit to
 itself and to the CPU plain version; its backward, a gather, bit for
 bit); flash attention: f32 2e-4, bf16 2e-2 (rtol and atol, the JAX
-package's own kernel tolerances); a GCN training step: chip_smoke's
-``TRAIN_LOSS_RTOL`` / ``TRAIN_GRAD_TOL`` against the plain path."""
+package's own kernel tolerances); a GCN training step, and the first
+step of PNA, MeshGraphNet and DimeNet: chip_smoke's ``TRAIN_LOSS_RTOL``
+/ ``TRAIN_GRAD_TOL`` against the plain path (the other GNNs' gradients
+against the float64 plain path, chip_smoke's ``exact_close``)."""
 
 import importlib.util
 import pathlib
@@ -560,3 +562,118 @@ def test_traversal_threads_and_replicas_count_every_launch(
                                 n_concurrent=24, batch=32, **kw)
     assert out["launches"] == out["device_batches"] > 0
     assert out["executor_threads"] > 1
+
+
+# ---------------------------------------------------------------------------
+# the other GNNs (PNA, MeshGraphNet, DimeNet): every segment sum on K2,
+# every gradient of one on its backward; held to the CPU path, which
+# tests/test_torch_gnn_{layers,models}.py hold to the JAX package
+# ---------------------------------------------------------------------------
+
+def _agg_case(kind: str, seed: int = 3):
+    rng = np.random.default_rng(seed)
+    n, e, d = 12, 80, 5
+    msgs = rng.standard_normal((e, d)).astype(np.float32)
+    ids = rng.integers(0, n, e).astype(np.int32)
+    if kind == "padding":
+        ids[rng.random(e) < 0.3] = -1
+    elif kind == "ids_at_or_above_n":
+        ids[::4] = n + rng.integers(0, 3, ids[::4].size)
+    elif kind == "planted_ties":
+        ids = np.repeat(np.arange(n), e // n + 1)[:e].astype(np.int32)
+        msgs[ids == 3] = msgs.max() + 1.0
+    elif kind == "relu_zeros":
+        msgs = np.maximum(msgs, 0)
+        msgs[ids == 2] = 0
+    return msgs, ids, n
+
+
+def _agg(name, msgs, ids, n, w, device, dtype=torch.float32):
+    from repro_torch.models.gnn import layers
+    m = torch.from_numpy(msgs).to(device, dtype).requires_grad_()
+    out = getattr(layers, name)(m, torch.from_numpy(ids).to(device), n)
+    (g,) = torch.autograd.grad(
+        (out * torch.from_numpy(w).to(device, dtype)).sum(), m)
+    return out.detach().cpu().double(), g.cpu().double()
+
+
+@pytest.mark.parametrize("kind", ["padding", "ids_at_or_above_n",
+                                  "planted_ties", "relu_zeros"])
+@pytest.mark.parametrize("name", ["scatter_max", "scatter_min",
+                                  "scatter_std"])
+def test_pna_aggregators_on_the_card(cuda, smoke, monkeypatch, name, kind):
+    """Max and min (``index_reduce``) equal the CPU path bit for bit,
+    values and gradients; the std's two means launch K2 four times and
+    its backward twice, and its gradients are held to the float64 CPU
+    path as chip_smoke holds PNA's (:func:`exact_close`)."""
+    from repro_torch.models.gnn import layers
+    msgs, ids, n = _agg_case(kind)
+    w = np.random.default_rng(4).standard_normal(
+        (n, msgs.shape[1])).astype(np.float32)
+    before = segment_sum.launches, segment_sum.grad_launches
+    out, g = _agg(name, msgs, ids, n, w, cuda)
+    torch.cuda.synchronize()
+    want = (4, 2) if name == "scatter_std" else (0, 0)
+    assert (segment_sum.launches - before[0],
+            segment_sum.grad_launches - before[1]) == want
+    cpu_out, cpu_g = _agg(name, msgs, ids, n, w, "cpu")
+    if name != "scatter_std":
+        assert torch.equal(out, cpu_out) and torch.equal(g, cpu_g)
+        return
+    torch.testing.assert_close(out, cpu_out, rtol=1e-5, atol=1e-6)
+    monkeypatch.setattr(layers, "segment_sum", smoke.segment_sum_f64)
+    _, exact = _agg(name, msgs, ids, n, w, "cpu", torch.float64)
+    smoke.exact_close(g, exact, smoke.relative_distance({"g": cpu_g},
+                                                        {"g": exact}),
+                      "scatter_std grad")
+
+
+@pytest.mark.parametrize("arch", ["pna", "meshgraphnet", "dimenet"])
+def test_other_gnn_first_step_on_the_card(cuda, smoke, arch):
+    """One loss and its gradients (reduced config, ``full_graph_batch``
+    of rmat(9, 8)): K2's launches ``k2_per_step``; the loss within
+    chip_smoke's training tolerance of the plain path on the card, the
+    gradients held to the float64 plain path as ``[gnn2]`` holds them
+    (``exact_close``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.data_gnn import full_graph_batch
+    from repro_torch.launch.steps import _GNN_MODULES
+
+    cfg = get_arch(arch).make_reduced()
+    mod = _GNN_MODULES[arch]
+    batch = full_graph_batch(arch, cfg, rmat(9, 8, seed=2),
+                             np.random.default_rng(0), n_classes=4,
+                             device=cuda)
+    params = mod.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    out = smoke.first_step_parity(
+        lambda p: mod.loss_fn(p, batch, cfg), params,
+        smoke.k2_per_step(arch, cfg),
+        exact=smoke.exact_plain_grads(mod, cfg, batch, params))
+    assert np.isfinite(out["loss"])
+
+
+def test_pna_serving_goes_through_k2(cuda, tmp_path):
+    """PNA served on the card (reduced): K2 launches 1 + 6 a layer a
+    request, logits within 1e-5 of the same server on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import make_gnn_server
+    from repro_torch.models.gnn import pna
+
+    cfg = get_arch("pna").make_reduced()
+    params = pna.init_params(cfg, torch.Generator().manual_seed(0))
+    seeds = np.arange(0, 256, 7)
+    logits = {}
+    for dev in (cuda, "cpu"):
+        answer, _, close = make_gnn_server(
+            "pna", cfg, str(tmp_path), device=dev, params=params,
+            decode="host")
+        try:
+            before = segment_sum.launches
+            logits[str(dev)] = answer(seeds)
+            launches = segment_sum.launches - before
+        finally:
+            close()
+        assert launches == ((1 + 6 * cfg.n_layers) if dev is cuda else 0)
+    np.testing.assert_allclose(logits[str(cuda)], logits["cpu"], rtol=1e-5,
+                               atol=1e-5)

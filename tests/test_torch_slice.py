@@ -760,3 +760,181 @@ def test_compile_check_detects_a_wrong_mapped_back_answer(smoke, small,
     with pytest.raises(AssertionError, match="differ"):
         smoke.phase_compile(csr, path, "cpu", workdir, n_batches=2,
                             batch=256)
+
+
+# ---------------------------------------------------------------------------
+# [gnn2]: PNA served and trained, MeshGraphNet and DimeNet trained, with
+# planted faults each of its checks must catch
+# ---------------------------------------------------------------------------
+
+GNN2_KW = dict(scale=10, edge_factor=8, parity_scale=9, mgn_mesh=12,
+               mgn_parity_mesh=10, dimenet_scale=9, dimenet_parity_scale=8,
+               n_requests=2, batch=64, reduced=True)
+
+
+def _pna_cfg():
+    from repro_torch.configs import get_arch
+    return get_arch("pna").make_reduced()
+
+
+def test_gnn2_phase_on_cpu(smoke, tmp_path, one_thread):
+    out = smoke.phase_gnn2("cpu", str(tmp_path), **GNN2_KW)
+    srv, pt = out["serve"], out["pna_train"]
+    assert srv["arch"] == "pna-reduced" and srv["max_abs_err"] == 0.0
+    assert srv["nodes_per_request"] == 64 * (1 + 5 + 25)
+    pt_losses = pt["losses"]
+    assert len(pt_losses) == 10 and pt_losses[-1] < pt_losses[0]
+    assert pt["vertices"] == 1024 and pt["hosts"] == 2
+    par = pt["parity"]                  # the CPU is deterministic
+    assert par["loss_rel_err"] == 0.0
+    assert par["grad_max_abs_err_vs_f64"] == par["plain_max_abs_err_vs_f64"]
+    assert out["meshgraphnet"]["graph"] == "bipartite_mesh(12, 12)"
+    assert out["dimenet"]["graph"] == "rmat(9, 16)"
+    for arch, n in (("meshgraphnet", 144), ("dimenet", 512)):
+        r = out[arch]
+        assert len(r["cli_losses"]) == 10 and r["vertices"] == n
+        par = r["parity"]
+        assert par["loss_rel_err"] == 0.0
+        assert par["grad_max_abs_err_vs_f64"] == \
+            par["plain_max_abs_err_vs_f64"]
+    # a CPU tensor never launches a kernel
+    assert out["k1_launches"] == out["k2_launches"] == \
+        out["k2_grad_launches"] == 0
+    smoke.log_gnn2(out)                 # the report formats
+    shapes = smoke.gnn2_k2_shapes(out)
+    assert {k: (int(v[0].numel()), v[1], v[2], v[3])
+            for k, v in shapes.items()} == {
+        "pna_served": (64 * 30, 64 * 31, 12, False),
+        "pna_full_graph": (pt["edges"], 1024, 12, True),
+        "meshgraphnet": (out["meshgraphnet"]["edges"], 144, 16, True),
+        "dimenet_triplets": (2 * out["dimenet"]["edges"],
+                             out["dimenet"]["edges"], 4, True),
+        "dimenet_readout": (512, 1, 1, True)}
+    checks = smoke.check_k2_shapes(shapes)
+    assert {k: v["checks"] for k, v in checks.items()} == {
+        "pna_served": 3, "pna_full_graph": 4, "meshgraphnet": 4,
+        "dimenet_triplets": 4, "dimenet_readout": 4}
+
+
+def test_k2_per_step_counts_every_segment_sum(smoke):
+    """The launch counts the phases assert, from the configs."""
+    from repro_torch.configs import get_arch
+    full = {a: get_arch(a).make_config() for a in
+            ("gcn-cora", "pna", "meshgraphnet", "dimenet")}
+    assert {a: smoke.k2_per_step(a, c) for a, c in full.items()} == {
+        "gcn-cora": (3, 1), "pna": (25, 12), "meshgraphnet": (15, 15),
+        "dimenet": (13, 13)}
+
+
+def test_gnn2_pna_serving_detects_wrong_logits(smoke, tmp_path, monkeypatch):
+    plain = smoke.gnn_plain_logits
+
+    def off_by_a_little(*args, **kwargs):
+        for logits, dst, n in plain(*args, **kwargs):
+            yield logits + 1e-3, dst, n
+
+    monkeypatch.setattr(smoke, "gnn_plain_logits", off_by_a_little)
+    with pytest.raises(AssertionError, match="served logits differ"):
+        smoke.phase_gnn2("cpu", str(tmp_path), **GNN2_KW)
+
+
+def test_gnn2_pna_training_detects_a_loss_that_does_not_fall(
+        smoke, tmp_path, monkeypatch):
+    """A step that leaves the params where they were."""
+    from repro_torch.launch import train as tr
+    real = tr.adamw_update
+
+    def stuck(params, grads, opt, cfg):
+        _, new_opt, met = real(params, grads, opt, cfg)
+        return params, new_opt, met
+
+    monkeypatch.setattr(tr, "adamw_update", stuck)
+    with pytest.raises(AssertionError, match="loss did not fall"):
+        smoke.gnn2_pna_train("cpu", str(tmp_path), _pna_cfg(), scale=10,
+                             edge_factor=8, hosts=2, steps=10,
+                             parity_scale=9)
+
+
+def _dropping_sum(msgs, ids, n):
+    """The kernel path losing its last edge (the plain path keeps it)."""
+    from repro_torch.kernels.segment_sum import segment_sum_ref
+    ids = ids.clone()
+    ids[-1] = -1
+    return segment_sum_ref(msgs, ids, n)
+
+
+def test_gnn2_pna_parity_detects_a_dropped_edge(smoke, tmp_path,
+                                                monkeypatch):
+    from repro_torch.models.gnn import layers
+    monkeypatch.setattr(layers, "segment_sum", _dropping_sum)
+    with pytest.raises(AssertionError, match="first-step"):
+        smoke.gnn2_pna_train("cpu", str(tmp_path), _pna_cfg(), scale=9,
+                             edge_factor=8, hosts=2, steps=2,
+                             parity_scale=9)
+
+
+def test_exact_close_holds_grads_to_the_float64_path(smoke):
+    """The scale is the plain path's worst distance over all parameters
+    relative to each one's max|g|: a parameter whose own plain draw lay
+    close still gets the pooled scale."""
+    exact = {"a": torch.tensor([1.0, -2.0, 0.0], dtype=torch.float64),
+             "b": torch.tensor([0.5, 0.25], dtype=torch.float64),
+             "empty": torch.zeros(0, dtype=torch.float64)}
+    plain = {"a": exact["a"] + torch.tensor([4e-6, 0.0, 0.0]),
+             "b": exact["b"].clone(), "empty": exact["empty"]}
+    scale = smoke.relative_distance(plain, exact)
+    assert scale == pytest.approx(2e-6)
+    near = exact["b"] + torch.tensor([2e-6, 0.0])     # 4e-6 of max|g|
+    assert smoke.exact_close(near.float(), exact["b"], scale, "b") < 3e-6
+    far = exact["b"] + torch.tensor([0.0, 5e-6])
+    with pytest.raises(AssertionError, match="b: max abs err .* from "
+                       "float64 beyond"):
+        smoke.exact_close(far.float(), exact["b"], scale, "b")
+    assert smoke.exact_close(plain["empty"], exact["empty"], scale, "e") == 0
+
+
+@pytest.mark.parametrize("arch", ["meshgraphnet", "dimenet"])
+def test_gnn2_full_batch_parity_detects_a_dropped_edge(smoke, tmp_path,
+                                                       monkeypatch, arch):
+    from repro_torch.models.gnn import layers
+    monkeypatch.setattr(layers, "segment_sum", _dropping_sum)
+    with pytest.raises(AssertionError, match="first-step"):
+        smoke.gnn2_trained(arch, "cpu", str(tmp_path), size=8,
+                           parity_size=8, steps=2, reduced=True)
+
+
+def _gnn2_shapes(smoke):
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(-1, 40, 300).astype(np.int32))
+    return {"a": (ids, 40, 75, True),
+            "one_segment": (torch.zeros(50, dtype=torch.int32), 1, 1, True)}
+
+
+@pytest.mark.parametrize("fault,match", [
+    (_dropping_design, "segment_sum atomic at a != plain"),
+    (_ulp_design, "segment_sum atomic at a != plain")])
+def test_k2_shape_checks_detect_a_planted_fault(smoke, monkeypatch, fault,
+                                                match):
+    monkeypatch.setattr(smoke, "_segment_sum_design", fault)
+    with pytest.raises(AssertionError, match=match):
+        smoke.check_k2_shapes(_gnn2_shapes(smoke))
+
+
+def test_k2_shape_checks_detect_a_wrong_backward(smoke, monkeypatch):
+    monkeypatch.setattr(smoke, "segment_sum_backward", _flip_one_grad)
+    with pytest.raises(AssertionError, match="backward at a != plain"):
+        smoke.check_k2_shapes(_gnn2_shapes(smoke))
+
+
+@pytest.mark.parametrize("arch", ["meshgraphnet", "dimenet"])
+def test_gnn2_training_detects_a_non_finite_loss(smoke, tmp_path,
+                                                 monkeypatch, arch):
+    """A loss that turns NaN in the CLI's run must fail the phase."""
+    from repro_torch.launch.steps import _GNN_MODULES
+    mod = _GNN_MODULES[arch]
+    real = mod.loss_fn
+    monkeypatch.setattr(mod, "loss_fn",
+                        lambda p, b, c: real(p, b, c) * float("nan"))
+    with pytest.raises(AssertionError, match="nan"):
+        smoke.gnn2_trained(arch, "cpu", str(tmp_path), size=8,
+                           parity_size=8, steps=2, reduced=True)
