@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA Hopper card::
 
-    python3 chip_smoke.py            # full size (load phase at --scale 23)
+    python3 chip_smoke.py            # full size (load phase at --scale 22)
 
 It builds every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card (the
@@ -33,7 +33,14 @@ through the query engine; then both K2 designs and K2's backward timed at
 the training shapes), serve and train PNA and train MeshGraphNet and
 DimeNet at full width (``[gnn2]``: every segment sum on K2, every
 gradient of one on its backward; then both timed at those models'
-shapes), and compile the load file with the graph
+shapes), serve qwen2-moe-a2.7b at full width and depth and dbrx-132b at
+full width on 6 of its 40 layers (``[moe]``: every attention call on
+K3, every combine on K2, each model first held in f32 at 2 layers to
+the plain path, routing as integers), train smollm-360m at full width
+and qwen2-moe-a2.7b at full width on 2 layers (``[lm_train]``: the MoE
+combine's gradient on K2's backward, a restart, the first step held to
+the plain path), time K2, its backward and K3 at the MoE shapes, and
+compile the load file with the graph
 compiler and serve the hot-set trace from the compiled file -- checks
 every result against an independent plain computation, and prints what
 it measured.
@@ -47,7 +54,8 @@ is printed.  Without a CUDA device it exits with code 2 at once.
 
 The load/serve/LogCSR/hot-set/traversal/GNN/train/gnn2/compile phases
 are plain functions of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
-n_tokens)``, so the CPU tests run the same code at a small size.
+n_tokens)``, ``[moe]`` and ``[lm_train]`` of ``device`` with a
+``reduced`` switch, so the CPU tests run the same code at a small size.
 """
 
 from __future__ import annotations
@@ -1065,10 +1073,12 @@ def profile_device(work, classify, classes) -> tuple[float, dict, list]:
 
 
 def lm_device_split(cfg, params, batch: int, prompt_len: int,
-                    n_decode: int) -> dict:
+                    n_decode: int, classify=None,
+                    classes=("k3", "gemm", "copy", "other")) -> dict:
     """Where one prefill and ``n_decode`` decode steps spend the card's
     time: ``torch.profiler`` device time summed by kernel class (K3,
-    GEMM, copies, other: norms, RoPE, SwiGLU, casts, argmax) against the
+    GEMM, copies, other: norms, RoPE, SwiGLU, casts, argmax; ``classify``
+    and ``classes`` name others, the MoE's K2 among them) against the
     host-clock wall of the same profiled work (:func:`profile_device`);
     with no device time at all the split is reported as not measured
     (None)."""
@@ -1094,7 +1104,7 @@ def lm_device_split(cfg, params, batch: int, prompt_len: int,
                     for _ in range(n_decode):
                         tf.decode_step(params, toks, cache, cfg)
             wall, sums, kernels = profile_device(
-                work, _kernel_class, ("k3", "gemm", "copy", "other"))
+                work, classify or _kernel_class, classes)
             busy = sum(sums.values())
             steps = 1 if part == "prefill" else n_decode
             out[part] = {"wall_ms": wall * 1e3 / steps,
@@ -1974,58 +1984,95 @@ def cuda_launches(fn, prefix: str, attempts: int = 4) -> tuple | None:
     return None
 
 
-#: run by :func:`fresh_k2_grad_launches` in a new Python process:
-#: argv[1] this file, argv[2] a JSON list of (label, ids .npy, N, D)
-_FRESH_K2_GRAD_LAUNCHES = """
+#: run by :func:`fresh_k2_launches` in a new Python process: argv[1]
+#: this file, argv[2] a JSON list of (label, ids .npy, N, D, backward),
+#: argv[3] a JSON list of ``MOE_K3_SHAPES`` kinds
+_FRESH_K2_LAUNCHES = """
 import importlib.util, json, sys
 import numpy as np, torch
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 out = {}
-for label, path, n, d in json.loads(sys.argv[2]):
+for label, path, n, d, backward in json.loads(sys.argv[2]):
     ids = torch.from_numpy(np.load(path)).cuda()
-    grad = torch.randn(n, d, device="cuda")
-    out[label] = cs.cuda_launches(
-        lambda: cs.segment_sum_backward(grad, ids, n), "k2_")
+    if backward:
+        grad = torch.randn(n, d, device="cuda")
+        fn = lambda: cs.segment_sum_backward(grad, ids, n)
+    else:
+        msgs = torch.randn(ids.numel(), d, device="cuda")
+        fn = lambda: cs.segment_sum(msgs, ids, n)
+    out[label] = cs.cuda_launches(fn, "k2_")
+gen = torch.Generator(device="cuda").manual_seed(0)
+for kind in json.loads(sys.argv[3]):
+    out[kind] = cs.cuda_launches(cs.flash_call(cs.MOE_K3_SHAPES[kind], gen),
+                                 "k3_")
 print(json.dumps(out))
 """
 
 
 def fresh_k2_grad_launches(cases: dict, d: int, workdir: str) -> dict:
     """K2's backward's CUDA launches per call (:func:`cuda_launches`) at
-    each case ``label -> (ids, n)``, counted in a new Python process that
-    loads the library this run built: late in this process the profiler
-    lost kernel records (the same window in a fresh process counts every
-    call).  The ids go over as ``.npy`` files in ``workdir``; the
-    process is waited for."""
+    each case ``label -> (ids, n)`` of width ``d``:
+    :func:`fresh_k2_launches`."""
+    return fresh_k2_launches({label: (ids, n, d, True) for label, (ids, n)
+                              in cases.items()}, workdir)
+
+
+def fresh_k2_launches(cases: dict, workdir: str, k3_kinds=()) -> dict:
+    """K2's CUDA launches per call (:func:`cuda_launches`) at each case
+    ``label -> (ids, n, d, backward)`` (the forward, or with ``backward``
+    its gather), and K3's at each of ``k3_kinds`` (``MOE_K3_SHAPES``,
+    :func:`flash_call`), counted in a new Python process that loads the
+    libraries this run built: late in this process the profiler lost
+    kernel records (the same window in a fresh process counts every
+    call).  The ids go over as ``.npy`` files in ``workdir``; the process
+    is waited for."""
     args = []
-    for label, (ids, n) in cases.items():
-        path = os.path.join(workdir, f"k2_grad_ids_{label}.npy")
+    for label, (ids, n, d, backward) in cases.items():
+        path = os.path.join(workdir, f"k2_ids_{label}.npy")
         np.save(path, ids.cpu().numpy())
-        args.append((label, path, int(n), int(d)))
+        args.append((label, path, int(n), int(d), bool(backward)))
     done = subprocess.run(
-        [sys.executable, "-c", _FRESH_K2_GRAD_LAUNCHES,
-         os.path.abspath(__file__), json.dumps(args)],
+        [sys.executable, "-c", _FRESH_K2_LAUNCHES,
+         os.path.abspath(__file__), json.dumps(args),
+         json.dumps(list(k3_kinds))],
         check=True, capture_output=True, text=True, timeout=300)
     return json.loads(done.stdout.strip().splitlines()[-1])
 
 
-def measure_flash(kind: str, flush, gen) -> dict:
-    """K3 at one of ``K3_SHAPES`` (smollm-360m's 15 query over 5 KV heads
-    of 64): the prefill as q [b,15,s,64] over k/v [b,5,s,64], causal; the
-    decode step as one query row per head against ``live`` positions of
-    a [b, live+1, 5, 64] cache view.  Kernel vs plain version, then
+def flash_call(sh: dict, gen):
+    """K3's call at one timed shape (``K3_SHAPES`` / ``MOE_K3_SHAPES``),
+    on inputs drawn from ``gen``: a function of no arguments."""
+    dtype, b = sh["dtype"], sh["b"]
+    hq, hkv, dh = sh.get("hq", 15), sh.get("hkv", 5), sh.get("dh", 64)
+    if "s" in sh:
+        q, k, v = _k3_inputs(b, hq, hkv, sh["s"], sh["s"], dh, dtype, gen)
+        return lambda: flash_attention(q, k, v)
+    q, k, v = decode_view(gen, dtype, b, sh["live"], hq, hkv, dh)
+    return lambda: attention_bshd(q, k, v, offset=sh["live"] - 1,
+                                  kv_len=sh["live"])
+
+
+def measure_flash(kind: str, flush, gen, shapes=None,
+                  count_launches: bool = True) -> dict:
+    """K3 at one of ``shapes`` (default ``K3_SHAPES``: smollm-360m's 15
+    query over 5 KV heads of 64; a shape may name ``hq``, ``hkv`` and
+    ``dh``, as ``MOE_K3_SHAPES`` do): the prefill as q [b,hq,s,dh] over
+    k/v [b,hkv,s,dh], causal; the decode step as one query row per head
+    against ``live`` positions of a [b, live+1, hkv, dh] cache view.  Kernel vs plain version, then
     kernel, plain and library-call times.  The library calls are
     ``scaled_dot_product_attention`` with ``enable_gqa=True`` and an
     explicit decode-convention mask and, where Sq == Skv, with
     ``is_causal=True`` (which aligns the mask top-left, the same function
     there, and may take a faster backend); ``library_ms`` is the faster
     of the two and ``library_call`` names it.  ``cuda_launches_per_call``
-    is counted by the profiler around one call (:func:`cuda_launches`)."""
+    is counted by the profiler around one call (:func:`cuda_launches`),
+    unless ``count_launches`` is false (None: counted elsewhere)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sh = K3_SHAPES[kind]
-    dtype, b, hq, hkv, dh = sh["dtype"], sh["b"], 15, 5, 64
+    sh = (shapes or K3_SHAPES)[kind]
+    dtype, b = sh["dtype"], sh["b"]
+    hq, hkv, dh = sh.get("hq", 15), sh.get("hkv", 5), sh.get("dh", 64)
     if "s" in sh:
         q, k, v = _k3_inputs(b, hq, hkv, sh["s"], sh["s"], dh, dtype, gen)
         qh, kh, vh = q, k, v
@@ -2064,7 +2111,7 @@ def measure_flash(kind: str, flush, gen) -> dict:
     for lib in libraries.values():          # the yardsticks agree
         _k3_close(lib(), want, dtype)
     del got, want
-    counted = cuda_launches(kernel, "k3_")
+    counted = cuda_launches(kernel, "k3_") if count_launches else None
     launches = counted and counted[0]
     ms = time_cuda(kernel, flush=flush)
     plain_ms = time_cuda(plain, flush=flush)
@@ -2193,17 +2240,18 @@ EXACT_FACTOR = 2.0
 
 @contextlib.contextmanager
 def plain_segment_sum(fn=None):
-    """Every segment sum of the GNNs on ``fn`` (default: K2's plain
-    version, autograd through ``index_add_``), on any device: the
-    yardstick the kernel path is held against in training."""
+    """Every segment sum of the GNNs and of the MoE combine on ``fn``
+    (default: K2's plain version, autograd through ``index_add_``), on
+    any device: the yardstick the kernel path is held against."""
+    from repro_torch.models import transformer as tf
     from repro_torch.models.gnn import layers
 
-    saved = layers.segment_sum
-    layers.segment_sum = fn or segment_sum_ref
+    saved = layers.segment_sum, tf.segment_sum
+    layers.segment_sum = tf.segment_sum = fn or segment_sum_ref
     try:
         yield
     finally:
-        layers.segment_sum = saved
+        layers.segment_sum, tf.segment_sum = saved
 
 
 def segment_sum_f64(messages: torch.Tensor, segment_ids: torch.Tensor,
@@ -2324,15 +2372,24 @@ def first_step_parity(loss_fn, params, per_step: tuple, exact=None) -> dict:
 
 
 def param_drift(got: dict, want: dict, start: dict) -> dict:
-    """How far ``got``'s params lie from ``want``'s, per param: the max
-    abs difference, and the L2 distance as a share of the distance
-    ``want`` moved from ``start``."""
+    """How far ``got``'s params lie from ``want``'s, per param (nested
+    dicts by their "a/b" paths): the max abs difference, and the L2
+    distance as a share of the distance ``want`` moved from
+    ``start``."""
+    def paths(tree, prefix=""):         # in the params' own key order
+        if isinstance(tree, dict):
+            return {kk: v for k in tree
+                    for kk, v in paths(tree[k], f"{prefix}{k}/").items()}
+        return {prefix[:-1]: tree}
+
     out = {}
-    for k, w in want["params"].items():
-        moved = float((w - start[k]).norm())
-        out[k] = {"max_abs": float((got["params"][k] - w).abs().max()),
-                  "share": float((got["params"][k] - w).norm())
-                  / max(moved, 1e-30)}
+    got_p, start = paths(got["params"]), paths(start)
+    for k, w in paths(want["params"]).items():
+        w = w.float()
+        moved = float((w - start[k].float()).norm())
+        diff = got_p[k].float() - w
+        out[k] = {"max_abs": float(diff.abs().max()),
+                  "share": float(diff.norm()) / max(moved, 1e-30)}
     return out
 
 
@@ -3018,6 +3075,832 @@ def log_k2_shape(label: str, r: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# [moe]: the MoE LMs served, every attention call on K3 and every combine
+# on K2; [lm_train]: LM training, dense and MoE
+# ---------------------------------------------------------------------------
+
+#: the MoE LMs served on the card and the layers each keeps (None: all;
+#: dbrx-132b's 40 layers are ~263 GB in bf16, so 6 of them, ~42 GB)
+MOE_SERVED = {"qwen2-moe-a2.7b": None, "dbrx-132b": 6}
+#: K3 at the MoE LMs' served shapes (8 x 1024-token prompts, head dim
+#: 128): qwen2-moe's 16 query over 16 KV heads, dbrx's 48 over 8
+MOE_K3_SHAPES = {
+    "qwen2_moe_prefill": dict(dtype=torch.bfloat16, b=8, s=1024, hq=16,
+                              hkv=16, dh=128),
+    "qwen2_moe_decode": dict(dtype=torch.bfloat16, b=8, live=1087, hq=16,
+                             hkv=16, dh=128),
+    "dbrx_prefill": dict(dtype=torch.bfloat16, b=8, s=1024, hq=48, hkv=8,
+                         dh=128),
+    "dbrx_decode": dict(dtype=torch.bfloat16, b=8, live=1087, hq=48, hkv=8,
+                        dh=128),
+}
+#: the share of (token, layer) routings of the f32 check that may lie
+#: closer to a tie than the two paths' measured router difference
+#: (counted and reported; above it the check fails)
+MOE_TIE_SHARE = 1e-3
+
+
+@contextlib.contextmanager
+def recorded_moe(calls: list, keep_messages: bool = True):
+    """Every ``moe_ffn`` call of the port's transformer appends a record
+    and then runs as it would: its router probabilities and top-k
+    (:func:`route` on its input), the capacity, the kept mask
+    (:func:`sort_assignments`), the token count, and -- with
+    ``keep_messages`` -- the scatter arm's combine inputs (``messages,
+    ids, T``) as its segment sum received them (else the ids only)."""
+    from repro_torch.models import transformer as tf
+
+    real_moe, real_ss = tf.moe_ffn, tf.segment_sum
+
+    def moe_ffn(x, lp, cfg, *, no_drop=False, eval_mode=False):
+        probs, _, idx = tf.route(x, lp["router"], cfg)
+        cap = tf.moe_capacity(cfg, x.shape[0], no_drop=no_drop,
+                              eval_mode=eval_mode)
+        rec = {"probs": probs.detach(), "idx": idx, "capacity": cap,
+               "keep": tf.sort_assignments(idx, cfg.e_pad, cap)[4],
+               "tokens": x.shape[0]}
+
+        def segment_sum_seen(m, ids, n):
+            rec["combine"] = ((m.detach() if keep_messages else None), ids,
+                              n)
+            return real_ss(m, ids, n)
+
+        tf.segment_sum = segment_sum_seen
+        try:
+            out = real_moe(x, lp, cfg, no_drop=no_drop, eval_mode=eval_mode)
+        finally:
+            tf.segment_sum = real_ss
+        calls.append(rec)
+        return out
+
+    tf.moe_ffn = moe_ffn
+    try:
+        yield
+    finally:
+        tf.moe_ffn = real_moe
+
+
+def top_k_margins(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Per token, its K-th largest router probability minus its
+    (K+1)-th (inf with only K experts)."""
+    top = torch.topk(probs, min(k + 1, probs.shape[-1]), dim=-1).values
+    if top.shape[-1] == k:
+        return torch.full(probs.shape[:-1], float("inf"),
+                          device=probs.device)
+    return top[..., k - 1] - top[..., k]
+
+
+def _kept_pairs(rec: dict, n_slots: int) -> torch.Tensor:
+    """[T, n_slots] bool: which (token, expert) assignments were kept."""
+    from repro_torch.models import transformer as tf
+
+    _, e_sorted, t_sorted, _, keep = tf.sort_assignments(
+        rec["idx"], n_slots, rec["capacity"])
+    out = torch.zeros(rec["tokens"], n_slots, dtype=torch.bool,
+                      device=keep.device)
+    out[t_sorted[keep], e_sorted[keep]] = True
+    return out
+
+
+def check_moe_routing(got: list, want: list, k: int, n_slots: int,
+                      batch: int) -> dict:
+    """Two runs' MoE routing held together call by call (``want`` the
+    plain path's, :func:`recorded_moe`'s records).  A token whose plain
+    path's top-k margin exceeds twice the two runs' largest difference in
+    its router probabilities cannot route otherwise: its experts must be
+    equal as integers.  The tokens below that margin are counted
+    (``near_ties``; at most ``MOE_TIE_SHARE`` of the routings), and those
+    of them routed to other experts (``flips``) mark their experts and
+    their batch rows: on every other expert the kept (token, expert)
+    assignments must be equal as integers.  Returns the counts, the
+    smallest margin and largest difference seen, and the batch rows a
+    flip touched (their logits cannot be compared)."""
+    assert len(got) == len(want), (len(got), len(want))
+    near = flips = routings = 0
+    low, diff_max, rows = float("inf"), 0.0, set()
+    for a, b in zip(got, want):
+        assert a["tokens"] == b["tokens"] and a["capacity"] == b["capacity"]
+        diff = (a["probs"].double() - b["probs"].double()).abs().amax(-1)
+        margin = top_k_margins(b["probs"].double(), k)
+        flipped = (a["idx"].sort(-1).values
+                   != b["idx"].sort(-1).values).any(-1)
+        clear = margin > 2 * diff
+        bad = clear & flipped
+        assert not bool(bad.any()), (
+            f"a token routed to other experts with a margin "
+            f"{float(margin[bad].min()):.3g} above twice its router "
+            f"difference {float(diff[bad].max()):.3g}")
+        near += int((~clear).sum())
+        routings += a["tokens"]
+        low = min(low, float(margin.min()))
+        diff_max = max(diff_max, float(diff.max()))
+        touched = torch.zeros(n_slots, dtype=torch.bool,
+                              device=a["idx"].device)
+        touched[a["idx"][flipped].reshape(-1)] = True
+        touched[b["idx"][flipped].reshape(-1)] = True
+        flips += int(flipped.sum())
+        per_row = a["tokens"] // batch
+        rows |= {int(t) // per_row
+                 for t in torch.nonzero(flipped).reshape(-1).tolist()}
+        ka, kb = _kept_pairs(a, n_slots), _kept_pairs(b, n_slots)
+        assert torch.equal(ka[:, ~touched], kb[:, ~touched]), \
+            "kept assignments differ on an expert no flip touched"
+    assert near <= MOE_TIE_SHARE * routings, \
+        f"{near} of {routings} routings closer to a tie than the paths' " \
+        f"difference"
+    return {"routings": routings, "near_ties": near, "flips": flips,
+            "min_margin": low, "max_router_diff": diff_max,
+            "rows_flipped": sorted(rows)}
+
+
+def check_moe_combine(calls: list, label: str) -> float:
+    """K2 on the MoE combine's recorded inputs (the first prefill and
+    the first decode call of a kernel-path run) against its plain
+    version, within ``K2_TOL``; returns the worst max abs error."""
+    worst = 0.0
+    firsts = [c for c in calls if "combine" in c]
+    picked = [firsts[0]] + [c for c in firsts if c["tokens"]
+                            != firsts[0]["tokens"]][:1]
+    for c in picked:
+        msgs, ids, n = c["combine"]
+        worst = max(worst, _k2_close(segment_sum(msgs, ids, n),
+                                     segment_sum_ref(msgs, ids, n),
+                                     torch.float32,
+                                     f"{label} combine (T={n})"))
+    return worst
+
+
+def moe_check(device, cfg, *, batch: int, prompt_len: int, n_tokens: int,
+              seed: int = 0) -> dict:
+    """The MoE model ``cfg`` (f32, its first layers) served through
+    ``serve_lm`` on the kernel path (K3 on every attention call, K2 on
+    every combine) and on the plain path (:func:`plain_attention`,
+    :func:`plain_segment_sum`) on the same weights and prompts: K3's and
+    K2's launches (one a layer a step on the kernel path, none on the
+    plain path); the routing held together (:func:`check_moe_routing`);
+    every step's last-position logits within ``LM_TOL`` and the greedy
+    tokens equal (:func:`_compare_logits`) on every batch row no flip
+    touched; K2 on the recorded combines against its plain version
+    (:func:`check_moe_combine`)."""
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tf
+
+    on_gpu = torch.device(device).type == "cuda"
+    params = tf.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(seed))
+    kw = dict(batch=batch, prompt_len=prompt_len, n_tokens=n_tokens,
+              device=device, params=params, keep_logits=True)
+    got_calls, want_calls = [], []
+    k3, k2 = flash_attention.launches, segment_sum.launches
+    with recorded_moe(got_calls):
+        got_tok, got = serve_lm(cfg, **kw)
+    launches = (flash_attention.launches - k3, segment_sum.launches - k2)
+    want_per = cfg.n_layers * n_tokens if on_gpu else 0
+    assert launches == (want_per, want_per), (launches, want_per)
+    k3, k2 = flash_attention.launches, segment_sum.launches
+    with plain_attention(), plain_segment_sum(), recorded_moe(want_calls):
+        want_tok, want = serve_lm(cfg, **kw)
+    assert (flash_attention.launches, segment_sum.launches) == (k3, k2)
+    routing = check_moe_routing(got_calls, want_calls, cfg.top_k, cfg.e_pad,
+                                batch)
+    rows = [r for r in range(batch) if r not in routing["rows_flipped"]]
+    assert rows, "every batch row holds a routing flip"
+    e2e = _compare_logits(got_tok[rows], got["logits"][:, rows],
+                          want_tok[rows], want["logits"][:, rows],
+                          tol=LM_TOL)
+    err = check_moe_combine(got_calls, cfg.name)
+    del params
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+            "prompt_len": prompt_len, "n_tokens": n_tokens,
+            "k3_launches": launches[0], "k2_launches": launches[1],
+            "routing": routing, "logits_max_abs_err": e2e["max_abs_err"],
+            "rows_compared": len(rows), "token_flips": e2e["flips"],
+            "combine_max_abs_err": err}
+
+
+def moe_served(device, cfg, *, batch: int, prompt_len: int, n_tokens: int,
+               seed: int = 0) -> dict:
+    """The MoE model ``cfg`` served in its own dtype through ``serve_lm``
+    on random weights: a 2-token warm-up (which also records the combine
+    ids of the first layer's prefill and decode step, for K2's timings),
+    then the timed run with K3's and K2's counts zeroed just before and
+    read just after (one launch each a layer a step), the tokens checked
+    for range and the logits for finiteness; peak memory; then one
+    prefill and 3 decode steps under the profiler (K3, K2, GEMMs,
+    copies, other)."""
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.launch.model_flops import lm_model_flops
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tf
+
+    on_gpu = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(seed))
+    _cuda_sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    kw = dict(batch=batch, prompt_len=prompt_len, device=device,
+              params=params)
+    calls = []
+    with recorded_moe(calls, keep_messages=False):
+        serve_lm(cfg, n_tokens=2, **kw)                 # warm-up
+    ids = {"prefill": calls[0]["combine"][1:],
+           "decode": calls[cfg.n_layers]["combine"][1:]}
+    del calls
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats(device)
+    flash_attention.launches = segment_sum.launches = 0
+    tokens, t = serve_lm(cfg, n_tokens=n_tokens, keep_logits=True, **kw)
+    launches = (flash_attention.launches, segment_sum.launches)
+    want = cfg.n_layers * n_tokens if on_gpu else 0
+    assert launches == (want, want), (launches, want)
+    logits = t.pop("logits")
+    assert tokens.shape == (batch, n_tokens)
+    assert tokens.min() >= 0 and tokens.max() < cfg.vocab
+    assert np.isfinite(logits).all(), "non-finite logits"
+    assert np.array_equal(tokens, logits.argmax(-1).T)
+    flops = lm_model_flops(cfg, LMShape("served", prompt_len, batch,
+                                        "prefill"))
+    steps = max(1, n_tokens - 1)
+    out = {"arch": cfg.name, "dtype": str(cfg.dtype), "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "experts": cfg.n_experts,
+           "slots": cfg.e_pad, "top_k": cfg.top_k, "params": n_params,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+           "init_s": init_s, "batch": batch, "prompt_len": prompt_len,
+           "n_tokens": n_tokens, "prefill_ms": t["prefill_s"] * 1e3,
+           "decode_ms_per_step": t["decode_s"] / steps * 1e3,
+           "tokens_per_s": t["tokens_per_s"], "prefill_flops": flops,
+           "prefill_flops_per_s": flops / t["prefill_s"],
+           "prefill_capacity": tf.moe_capacity(cfg, batch * prompt_len,
+                                               eval_mode=True),
+           "decode_capacity": tf.moe_capacity(cfg, batch, no_drop=True,
+                                              eval_mode=True),
+           "k3_launches": launches[0], "k2_launches": launches[1],
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                    if on_gpu else None),
+           "combine_ids": ids}
+    if on_gpu:
+        out["device_split"] = lm_device_split(
+            cfg, params, batch, prompt_len, 3, _train_kernel_class,
+            ("k3", "k2", "gemm", "copy", "other"))
+    del params
+    return out
+
+
+def phase_moe(device, *, batch: int = 8, prompt_len: int = 1024,
+              n_tokens: int = 64, check_layers: int = 2,
+              check_batch: int = 2, check_prompt_len: int = 256,
+              check_tokens: int = 4, served=None, reduced: bool = False,
+              seed: int = 0) -> dict:
+    """``[moe]``: qwen2-moe-a2.7b at full width and depth and dbrx-132b
+    at full width on 6 of its 40 layers (``MOE_SERVED``; ``served`` maps
+    an arch to other depths), each: :func:`moe_check` at its first
+    ``check_layers`` layers in f32, then :func:`moe_served` in bf16 (the
+    reduced configs in f32 with ``reduced``).  Each model is freed before
+    the next step."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, layers in (served or MOE_SERVED).items():
+        spec = get_arch(arch)
+        cfg = spec.make_reduced() if reduced else spec.make_config()
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t0 = time.perf_counter()
+        check = moe_check(device, dataclasses.replace(
+            cfg, n_layers=min(check_layers, cfg.n_layers),
+            dtype=torch.float32), batch=check_batch,
+            prompt_len=check_prompt_len, n_tokens=check_tokens, seed=seed)
+        check["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        r = moe_served(device, cfg, batch=batch, prompt_len=prompt_len,
+                       n_tokens=n_tokens, seed=seed)
+        r["wall_s"] = time.perf_counter() - t0
+        r["check"] = check
+        out[arch] = r
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return {"models": out, "k3_launches": sum(
+        r["k3_launches"] for r in out.values()),
+        "k2_launches": sum(r["k2_launches"] for r in out.values()),
+        "wall_s": time.perf_counter() - t_phase}
+
+
+#: ``[lm_train]``'s models: (arch, layers kept (None: all), batch,
+#: sequence, checkpoint every, failure at).  Batch and sequence keep the
+#: activations small (the plain attention keeps its score tiles for the
+#: backward); qwen2-moe's 1.83 B parameters at 2 layers set its peak:
+#: AdamW with f32 masters holds 14 bytes a parameter (25.6 GB), and two
+#: states live during the functional update; its restart checkpoints
+#: twice
+LM_TRAIN = (("smollm-360m", None, 8, 512, 4, 5),
+            ("qwen2-moe-a2.7b", 2, 4, 512, 5, 6))
+#: the first step's parity run: batch x sequence
+LM_PARITY = (2, 128)
+#: AdamW's warmup steps in ``[lm_train]`` (lr 1e-3 after them, cosine to
+#: the last step): the CLI's 10 would leave 10 steps too little movement
+#: to show the loss fall
+LM_TRAIN_WARMUP = 2
+
+
+def write_zipf_shard(path: str, vocab: int, n: int = 200_000,
+                     seed: int = 0) -> None:
+    """A token shard of ``n`` ids drawn from a Zipf(1.3) law over the
+    vocabulary, as text's unigram law: on the training CLI's own uniform
+    draw the loss of a tied-embedding model starts at ln V and cannot
+    fall, so the check that it falls needs a stream with something to
+    learn."""
+    from repro_torch.data import write_token_shard
+
+    rng = np.random.default_rng(seed)
+    write_token_shard(path, (rng.zipf(1.3, n) - 1) % vocab, vocab)
+
+
+def state_fingerprint(tree, chunk: int = 1 << 26) -> dict:
+    """Per leaf (:func:`flat_tree`'s paths), one float64 0-d tensor: the
+    leaf's bit patterns (as integers of its own width) dotted with fixed
+    pseudo-random float64 weights, on the leaf's device, a chunk at a
+    time.  Two leaves that differ in any bit differ here but with
+    vanishing chance, so a restored state is held to the saved one bit
+    for bit without a second copy of either (``torch.equal`` on the
+    fingerprints)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out, weights = {}, {}
+    for path, leaf in flat_tree(tree).items():
+        bits = leaf.detach().reshape(-1).view(ints[leaf.element_size()])
+        dev = str(bits.device)
+        if dev not in weights:
+            gen = torch.Generator(device=bits.device).manual_seed(12345)
+            weights[dev] = torch.rand(chunk, generator=gen,
+                                      dtype=torch.float64, device=bits.device)
+        w = weights[dev]
+        total = torch.zeros((), dtype=torch.float64, device=bits.device)
+        for i in range(0, bits.numel(), chunk):
+            part = bits[i:i + chunk]
+            total += (part.double() * w[:part.numel()]).sum()
+        out[path] = total
+    return out
+
+
+def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
+                 seq: int, ckpt_every: int, fail_at: int, steps: int = 10,
+                 reduced: bool = False, seed: int = 0) -> dict:
+    """One LM trained through the training CLI's pieces
+    (``launch/train.py``: ``_lm_batches`` over a token shard through
+    PG-Fuse, decoded on the host; ``_make_step``: the training route's
+    plain attention, K2 on the MoE combine and its backward kernel on
+    the combine's gradient; AdamW with f32 masters):
+
+    1. ``steps`` timed steps on the first ``steps`` batches (a
+       :func:`write_zipf_shard` stream), K2's launches a step asserted
+       (forward and backward one a layer for the MoE, none for a dense
+       FFN), finite losses that fall (the last three's mean below the
+       first three's); one more step under the profiler;
+    2. the restart: the same steps through ``ResilientTrainer`` with a
+       failure injected at ``fail_at`` and checkpoints every
+       ``ckpt_every`` steps (one kept), the batches replayed from the
+       restored step (the trainer checkpoints no data position), held to
+       step 1's run by :func:`check_restart` (the saved and resumed
+       states by :func:`state_fingerprint`);
+    3. the first step in f32 at ``LM_PARITY`` on the kernel path against
+       the plain path (:func:`first_step_parity`; the MoE's gradients
+       held to the plain path in float64 throughout, its combine
+       :func:`segment_sum_f64`), with each run's routing held to the
+       plain path's (:func:`check_moe_routing`: no token may route to
+       other experts, or its gradients could not be compared)."""
+    from repro_torch.distributed.fault_tolerance import ResilientTrainer
+    from repro_torch.launch import train as tr
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t_start = time.perf_counter()
+    on_gpu = torch.device(device).type == "cuda"
+    spec = get_arch(arch)
+    cfg = spec.make_reduced() if reduced else spec.make_config()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    per_step = (cfg.n_layers, cfg.n_layers) if cfg.moe and on_gpu else (0, 0)
+    wd = os.path.join(workdir, f"lm_train_{arch}")
+    os.makedirs(wd, exist_ok=True)
+    write_zipf_shard(os.path.join(wd, "tokens.ctok"), cfg.vocab, seed=seed)
+    t0 = time.perf_counter()
+    source = tr._lm_batches(cfg, batch, seq, wd, True, device=device)
+    try:
+        batches = [next(source) for _ in range(steps + 1)]
+    finally:
+        source.close()
+    load_s = time.perf_counter() - t0
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=LM_TRAIN_WARMUP,
+                          total_steps=steps, master_f32=True)
+    init_fn, step = tr._make_step(arch, cfg, opt_cfg, "lm", device=device)
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    allocated_before = torch.cuda.memory_allocated(device) if on_gpu else None
+    log(f"[lm_train] {arch}: {allocated_before} B allocated on the card "
+        f"before its run")
+
+    # 1. the timed steps.  The initial state is drawn anew (the same
+    # seed, the same bits) wherever it is needed rather than kept: AdamW's
+    # state is 14 bytes a parameter, ~26 GB for qwen2-moe at 2 layers,
+    # and two of it live during an update
+    state = {"params": init_fn(seed)}
+    state["opt"] = adamw_init(state["params"], opt_cfg)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    losses, secs, counts = [], [], []
+    for b in batches[:steps]:
+        state, l1, s1, c1 = _timed_steps(step, state, b, 1, device)
+        losses += l1
+        secs += s1
+        counts += c1
+    assert all(c == per_step for c in counts), (counts, per_step)
+    assert np.isfinite(losses).all() and \
+        np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": str(cfg.dtype), "batch": batch, "seq": seq,
+           "params": n_params,
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(state)),
+           "load_s": load_s, "losses": losses, "step_s": secs,
+           "step_p50_s": statistics.median(secs[1:]),
+           "k2_per_step": list(per_step),
+           "memory_allocated_before": allocated_before,
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                    if on_gpu else None)}
+    ran = steps
+    if on_gpu:
+        out["step_split"] = train_step_split(step, state, batches[steps])
+        ran += 1
+    if cfg.moe:
+        # the combine's ids at this shape, for K2's backward timing
+        calls = []
+        with torch.no_grad(), recorded_moe(calls, keep_messages=False):
+            tf.forward_hidden(state["params"], batches[0]["tokens"], cfg)
+        out["combine_ids"] = calls[0]["combine"][1:]
+        del calls
+    # the uninjected run's params wait on the host while the restart runs
+    clean = {"params": tree_map(lambda t: t.to("cpu"), state["params"])}
+    del state
+    gc.collect()
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    # 2. the restart, on the same batches replayed; the state the trainer
+    # checkpointed and the one it resumed from are held by their
+    # fingerprints (:func:`state_fingerprint`), not kept
+    t_restart = time.perf_counter()
+    resume = (fail_at // ckpt_every) * ckpt_every
+    ckpt_dir = os.path.join(wd, "ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    inputs, seen = {}, []
+
+    def recording(st, b):
+        n = recording.calls
+        recording.calls += 1
+        if n in (resume, fail_at):
+            inputs[n] = state_fingerprint(st)
+        return step(st, b)
+
+    recording.calls = 0
+    replay = batches[:fail_at + 1] + batches[resume:steps]
+    c0 = _k2_counts()
+    first = {"params": init_fn(seed)}
+    first["opt"] = adamw_init(first["params"], opt_cfg)
+    start = tree_map(lambda t: t.to("cpu"), first["params"])
+    trainer = ResilientTrainer(recording, first, ckpt_dir=ckpt_dir,
+                               ckpt_every=ckpt_every, keep_last=1)
+    del first
+    restored = trainer.run(
+        iter(replay), n_steps=steps, inject_failure_at=fail_at,
+        on_metrics=lambda s, m: seen.append((s, float(m["loss"]))))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    assert [s for s, _ in seen] == list(range(1, fail_at + 1)) + list(
+        range(resume + 1, steps + 1)), seen
+    assert tuple(b - a for a, b in zip(c0, _k2_counts())) == (
+        len(seen) * per_step[0], len(seen) * per_step[1])
+    ran += len(seen)
+    restored = {"params": restored["params"]}
+    del trainer
+    gc.collect()
+    clean = {"params": tree_map(lambda t: t.to(device), clean["params"])}
+    out["restart"] = {"fail_at": fail_at, "ckpt_every": ckpt_every,
+                      "steps_replayed": fail_at - resume,
+                      **check_restart(inputs[fail_at], inputs[resume],
+                                      [x for _, x in seen[fail_at:]],
+                                      losses[resume:], restored, clean,
+                                      tree_map(lambda t: t.to(device),
+                                               start))}
+    del restored, clean, inputs, batches, start
+    gc.collect()
+    if on_gpu:
+        torch.cuda.empty_cache()
+    out["restart"]["wall_s"] = time.perf_counter() - t_restart
+    t_parity = time.perf_counter()
+
+    # 3. the first step, f32, kernel path vs plain path (and float64)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = tree_map(torch.Tensor.float, init_fn(seed))
+    pb, ps = LM_PARITY
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (pb, ps + 1)), device=device)
+    runs = []
+
+    def routed(loss_fn):
+        def run(p):
+            runs.append([])
+            with recorded_moe(runs[-1], keep_messages=False):
+                return loss_fn(p)
+        return run
+
+    def loss_fn(p, c=cfg32):
+        return tf.loss_fn(p, toks[:, :-1], toks[:, 1:], c)
+
+    def exact() -> dict:
+        cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+        with plain_segment_sum(segment_sum_f64):
+            return loss_and_grads(routed(lambda p: loss_fn(p, cfg64)),
+                                  tree_map(torch.Tensor.double, params32))[1]
+
+    par = first_step_parity(routed(loss_fn), params32, per_step,
+                            exact=exact if cfg.moe else None)
+    if cfg.moe:
+        par["routing"] = {
+            "kernel_vs_plain": check_moe_routing(runs[0], runs[1],
+                                                 cfg.top_k, cfg.e_pad, pb),
+            "float64_vs_plain": check_moe_routing(runs[2], runs[1],
+                                                  cfg.top_k, cfg.e_pad, pb)}
+        for name, r in par["routing"].items():
+            assert r["flips"] == 0, (
+                f"{name}: {r['flips']} token(s) routed to other experts at a "
+                f"near tie (smallest margin {r['min_margin']:.3g}): the "
+                f"gradients cannot be compared")
+    out["parity"] = {"batch": pb, "seq": ps, **par,
+                     "wall_s": time.perf_counter() - t_parity}
+    ran += 1
+    k2_forward_only = cfg.n_layers if cfg.moe and on_gpu else 0
+    out["k2_launches"] = ran * per_step[0] + k2_forward_only
+    out["k2_grad_launches"] = ran * per_step[1]
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def phase_lm_train(device, workdir: str, *, models=LM_TRAIN, steps: int = 10,
+                   reduced: bool = False, seed: int = 0) -> dict:
+    """``[lm_train]``: each of ``models`` (``LM_TRAIN``: smollm-360m at
+    full width and depth, qwen2-moe-a2.7b at full width on 2 layers, its
+    MoE combine on K2 at D 2048) trained by :func:`lm_train_one`, freed
+    before the next."""
+    out = {}
+    for arch, layers, batch, seq, ckpt_every, fail_at in models:
+        out[arch] = lm_train_one(arch, device, workdir, layers=layers,
+                                 batch=batch, seq=seq, ckpt_every=ckpt_every,
+                                 fail_at=fail_at, steps=steps,
+                                 reduced=reduced, seed=seed)
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return {"models": out,
+            "k2_launches": sum(r["k2_launches"] for r in out.values()),
+            "k2_grad_launches": sum(r["k2_grad_launches"]
+                                    for r in out.values())}
+
+
+def moe_k2_shapes(moe: dict, lmt: dict) -> dict:
+    """K2's shapes on this slice's path, ``label -> (ids, n, d,
+    backward)``: the combine of each served MoE model's prefill and
+    decode step (recorded in :func:`moe_served`'s warm-up) and of the
+    MoE training step (its backward too)."""
+    out = {}
+    for arch, r in moe["models"].items():
+        name = arch.split("-")[0].replace("qwen2", "qwen2_moe")
+        for part, (ids, n) in r["combine_ids"].items():
+            out[f"{name}_combine_{part}"] = (ids, n, r["d_model"], False)
+    for arch, r in lmt["models"].items():
+        if "combine_ids" in r:
+            ids, n = r["combine_ids"]
+            out[f"{arch.split('-')[0]}_moe_combine_train"] = (
+                ids, n, r["d_model"], True)
+    return out
+
+
+def log_moe(moe: dict) -> None:
+    """The ``[moe]`` lines: per model the f32 check, the served run and
+    the profiled split."""
+    for arch, r in moe["models"].items():
+        c, rt = r["check"], r["check"]["routing"]
+        log(f"[moe] {arch} f32 check at {c['layers']} layers, {c['batch']} "
+            f"x {c['prompt_len']}-token prompts, {c['n_tokens']} tokens: K3 "
+            f"{c['k3_launches']} and K2 {c['k2_launches']} launches on the "
+            f"kernel path, none on the plain path; routing: "
+            f"{rt['routings']} token routings, {rt['near_ties']} below the "
+            f"measured router difference (largest {rt['max_router_diff']:.3g}"
+            f", smallest top-k margin {rt['min_margin']:.3g}), "
+            f"{rt['flips']} routed otherwise, every other routing and kept "
+            f"assignment equal as integers; last-position logits within "
+            f"{LM_TOL} of the plain path on {c['rows_compared']} of "
+            f"{c['batch']} rows (max abs err {c['logits_max_abs_err']:.3g}), "
+            f"{len(c['token_flips'])} greedy-token flips; K2 on the "
+            f"recorded combines within {K2_TOL[torch.float32]} of its plain "
+            f"version (max abs err {c['combine_max_abs_err']:.3g}); "
+            f"{c['wall_s']:.1f} s")
+        log(f"[moe] {arch} {r['dtype'].split('.')[-1]} at {r['layers']} "
+            f"layers (d_model {r['d_model']}, {r['experts']} experts in "
+            f"{r['slots']} slots, top-{r['top_k']}; {r['params']} parameter "
+            f"elements, {r['param_bytes']} B, drawn in {r['init_s']:.1f} s): "
+            f"{r['batch']} x {r['prompt_len']}-token prompts, "
+            f"{r['n_tokens']} tokens: prefill {r['prefill_ms']:.3f} ms "
+            f"(capacity {r['prefill_capacity']}; {r['prefill_flops']:.4g} "
+            f"FLOP by lm_model_flops, "
+            f"{r['prefill_flops_per_s'] / 1e12:.2f} TFLOP/s), decode "
+            f"{r['decode_ms_per_step']:.3f} ms per step (capacity "
+            f"{r['decode_capacity']}, no drop), {r['tokens_per_s']:.1f} "
+            f"tokens/s; K3 launches {r['k3_launches']}, K2 launches "
+            f"{r['k2_launches']} ({r['layers']} a step); "
+            f"max_memory_allocated {r['max_memory_allocated']} B; "
+            f"{r['wall_s']:.1f} s")
+        for part, sp in (r.get("device_split") or {}).items():
+            dev = sp["device_ms"]
+            log(f"[moe] {arch} {part} (torch.profiler, per "
+                f"{'prefill' if part == 'prefill' else 'decode step'}): wall "
+                f"{sp['wall_ms']:.3f} ms; device "
+                + ("not measured (no device time in the trace)" if dev is None
+                   else ", ".join(f"{k} {v:.3f} ms" for k, v in dev.items())
+                   + f"; idle share {sp['idle_share']:.3f}"))
+            log(f"[moe] {arch} {part} top kernels (ms, launches, name): "
+                + "; ".join(f"{ms:.3f} {n} {name}"
+                            for ms, n, name in sp["top_kernels"]))
+
+
+def log_lm_train(lmt: dict) -> None:
+    """The ``[lm_train]`` lines: per model the steps, the profiled split,
+    the restart and the first step's parity."""
+    for arch, r in lmt["models"].items():
+        log(f"[lm_train] {arch} ({r['dtype'].split('.')[-1]}, "
+            f"{r['layers']} layers, d_model {r['d_model']}, {r['params']} "
+            f"parameters, AdamW state {r['state_bytes']} B with f32 "
+            f"masters), {r['batch']} x "
+            f"{r['seq']} tokens a step (Zipf shard through PG-Fuse, "
+            f"decoded on the host, {r['load_s']:.2f} s): "
+            f"{len(r['losses'])} steps, loss {r['losses'][0]:.5f} -> "
+            f"{r['losses'][-1]:.5f}; step p50 {r['step_p50_s'] * 1e3:.3f} ms "
+            f"(steps " + ", ".join(f"{t * 1e3:.1f}" for t in r["step_s"])
+            + f" ms); max_memory_allocated {r['max_memory_allocated']} B "
+            f"({r['memory_allocated_before']} B before); "
+            f"K2 a step: {r['k2_per_step'][0]} forward, "
+            f"{r['k2_per_step'][1]} backward (asserted every step); "
+            f"{r['wall_s']:.1f} s")
+        sp = r.get("step_split") or {}
+        log(f"[lm_train] {arch} one step (torch.profiler): wall "
+            f"{sp.get('wall_ms', float('nan')):.3f} ms; device "
+            + ("not measured (no device time in the trace)"
+               if not sp.get("device_ms") else ", ".join(
+                   f"{k} {v:.3f} ms" for k, v in sp["device_ms"].items())
+               + f"; idle share {sp['idle_share']:.3f}; top kernels (ms, "
+               f"launches, name): " + "; ".join(
+                   f"{ms:.3f} {n} {name}" for ms, n, name in
+                   sp["top_kernels"])))
+        rs, par = r["restart"], r["parity"]
+        log(f"[lm_train] {arch} restart: failure injected at step "
+            f"{rs['fail_at']}, checkpoints every {rs['ckpt_every']}, "
+            f"{rs['steps_replayed']} step(s) replayed on the same batches; "
+            f"resumed from the checkpointed state bit for bit (fingerprints "
+            f"of every leaf); losses after the restore within "
+            f"{rs['loss_rel_err']:.3g} (<= {TRAIN_LOSS_RTOL}); final params "
+            f"off the uninjected run's by at most "
+            f"{max(d['share'] for d in rs['drift'].values()):.3g} of the "
+            f"distance moved (<= {RESTART_PARAM_SHARE}); {rs['wall_s']:.1f} s")
+        if "grad_max_abs_err_vs_f64" in par:
+            dist = par["plain_relative_distance"]
+            grads = (f"grads held to the float64 plain path (plain f32 path's "
+                     f"worst relative distance {dist:.3g}; max abs err "
+                     + ", ".join(
+                         f"{k} {v:.3g}" for k, v in
+                         par["grad_max_abs_err_vs_f64"].items()) + ")")
+            rt = par["routing"]
+            grads += (f"; routing of the kernel path and of the float64 "
+                      f"path equal to the plain path's ("
+                      f"{rt['kernel_vs_plain']['near_ties']} / "
+                      f"{rt['float64_vs_plain']['near_ties']} near ties, "
+                      f"smallest margin "
+                      f"{rt['kernel_vs_plain']['min_margin']:.3g})")
+        else:
+            grads = (f"grads within rtol {TRAIN_GRAD_TOL[0]}, atol "
+                     f"{TRAIN_GRAD_TOL[1]} x max|g| (max abs err "
+                     + ", ".join(f"{k} {v:.3g}" for k, v in
+                                 par["grad_max_abs_err"].items()) + ")")
+        log(f"[lm_train] {arch} first step in f32 at {par['batch']} x "
+            f"{par['seq']} tokens, kernel path vs plain path: loss "
+            f"{par['loss']:.7f} vs {par['plain_loss']:.7f} (rel err "
+            f"{par['loss_rel_err']:.3g} <= {TRAIN_LOSS_RTOL}); {grads}; "
+            f"{par['wall_s']:.1f} s")
+
+
+def moe_slice(device, workdir: str) -> dict:
+    """``main``'s phases 15d-15f, also run alone to rehearse them:
+    ``[moe]`` (:func:`phase_moe`), ``[lm_train]`` (:func:`phase_lm_train`)
+    with K2's counts and K3's zeroed just before and read just after,
+    then K2 and its backward at the MoE combine's shapes
+    (:func:`moe_k2_shapes`: held bit for bit, timed, CUDA launches per
+    call counted in a fresh process) and K3 at the MoE LMs' served
+    shapes (``MOE_K3_SHAPES``)."""
+    # phase 15d: [moe] qwen2-moe-a2.7b served at full width and depth,
+    # dbrx-132b at full width on 6 layers; K3's and K2's counts zeroed
+    # just before each served run and read just after (moe_served)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(device)
+    moe_k3, moe_k2 = moe["k3_launches"], moe["k2_launches"]
+    assert moe_k3 > 0 and moe_k2 > 0
+    log_moe(moe)
+    log(f"[moe] main-path launches: K3 {moe_k3}, K2 {moe_k2}; phase wall "
+        f"{moe['wall_s']:.1f} s")
+
+    # phase 15e: [lm_train] smollm-360m at full width and depth and
+    # qwen2-moe-a2.7b at full width on 2 layers; K2's counts and K3's
+    # zeroed just before and read just after (training takes the
+    # plain attention: K3 has no backward)
+    gc.collect()
+    torch.cuda.empty_cache()
+    segment_sum.launches = segment_sum.grad_launches = 0
+    flash_attention.launches = 0
+    lmt = phase_lm_train(device, workdir)
+    lmt_k2, lmt_k2b = segment_sum.launches, segment_sum.grad_launches
+    assert (lmt_k2, lmt_k2b) == (lmt["k2_launches"],
+                                 lmt["k2_grad_launches"]), \
+        (lmt_k2, lmt_k2b, lmt["k2_launches"], lmt["k2_grad_launches"])
+    assert lmt_k2 > 0 and lmt_k2b > 0 and flash_attention.launches == 0
+    log_lm_train(lmt)
+    log(f"[lm_train] main-path launches: K2 forward {lmt_k2}, K2 "
+        f"backward {lmt_k2b}, K3 0; phase wall "
+        f"{sum(r['wall_s'] for r in lmt['models'].values()):.1f} s")
+
+    # phase 15f: K2 (and its backward) at the MoE combine's shapes, held
+    # to the plain version bit for bit (integer messages), timed, with
+    # CUDA launches per call counted in a fresh process; K3 at the MoE
+    # LMs' served shapes
+    shapes = moe_k2_shapes(moe, lmt)
+    k2m_checks = check_k2_shapes(shapes)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = fresh_k2_launches(
+        {**{label: (ids_t, n, d, False)
+            for label, (ids_t, n, d, _) in shapes.items()},
+         **{f"{label}_backward": (ids_t, n, d, True)
+            for label, (ids_t, n, d, bwd) in shapes.items() if bwd}},
+        workdir, MOE_K3_SHAPES)
+    flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+    k2m = {}
+    for label, (ids_t, n, d, backward) in shapes.items():
+        r = k2m[label] = measure_segment_sum_full_graph(
+            ids_t, n, (d,), flush, gen)["widths"][d]
+        r["checks"] = k2m_checks[label]["checks"]
+        r["cuda_launches_per_call"] = fresh[label]
+        if backward:
+            r["backward"] = measure_segment_sum_grad(ids_t, d, n, flush,
+                                                     gen)
+            r["backward"]["cuda_launches_per_call"] = \
+                fresh[f"{label}_backward"]
+        log_k2_shape(label, r)
+        log(f"[kernel] segment_sum {label}: CUDA launches per call "
+            f"(profiler, {TRACE_CALLS} calls in a fresh process): "
+            + ", ".join(f"{k} {fresh[k]}" for k in fresh
+                        if k.startswith(label)))
+    k3m = {}
+    for kind in MOE_K3_SHAPES:
+        r = k3m[kind] = measure_flash(kind, flush, gen, MOE_K3_SHAPES,
+                                      count_launches=False)
+        r["cuda_launches_per_call"] = fresh[kind] and fresh[kind][0]
+        log(f"[kernel] flash_attention {kind} ({r['design']}, nsplit "
+            f"{r['nsplit']}, CUDA launches per call (profiler) "
+            f"{r['cuda_launches_per_call'] or 'not measured'}) "
+            f"{r['dtype']} q[{r['b']},{r['hq']},{r['sq']},{r['dh']}] over "
+            f"{r['kv_len']} keys x {r['hkv']} heads: kernel "
+            f"{r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})  {r['tflop_per_s']:.2f} TFLOP/s  "
+            f"{r['gb_per_s']:.1f} GB/s  plain {r['plain_ms']:.4f} ms  "
+            + "  ".join(f"{name} {t:.4f} ms"
+                        for name, t in r["library"].items())
+            + f"  max_abs_err {r['max_abs_err']:.3g}")
+    del flush, shapes
+    for r in moe["models"].values():
+        r.pop("combine_ids")
+    for r in lmt["models"].values():
+        r.pop("combine_ids", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    return {"moe": moe, "lm_train": lmt, "k2": k2m, "k3": k3m,
+            "lm_train_k2": lmt_k2, "lm_train_k2_grad": lmt_k2b}
+
+
+# ---------------------------------------------------------------------------
 # [compile]: the graph compiler on the load file, then a cold engine on
 # the compiled file answering the hot-set trace
 # ---------------------------------------------------------------------------
@@ -3083,9 +3966,11 @@ def phase_compile(csr, path: str, device, workdir: str, *,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scale", type=int, default=23,
+    ap.add_argument("--scale", type=int, default=22,
                     help="RMAT scale of the load/serve graph (2^scale "
-                         "vertices, 16 edges each before dedup)")
+                         "vertices, 16 edges each before dedup; 22 since "
+                         "the MoE and LM training phases joined the run, "
+                         "to keep it well inside its time limit)")
     ap.add_argument("--logcsr-scale", type=int, default=16)
     ap.add_argument("--large-log2", type=int, default=28,
                     help="log2 of the id count of the timed kernel cases")
@@ -3652,6 +4537,13 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        # phases 15d-15f: [moe], [lm_train], then K2, its backward and K3
+        # at their shapes
+        ms = moe_slice(device, workdir)
+        moe, lmt, k2m, k3m = ms["moe"], ms["lm_train"], ms["k2"], ms["k3"]
+        moe_k3, moe_k2 = moe["k3_launches"], moe["k2_launches"]
+        lmt_k2, lmt_k2b = ms["lm_train_k2"], ms["lm_train_k2_grad"]
+
         # phase 16: [compile] the load file through the graph compiler,
         # the hot-set trace through a cold engine on the compiled file;
         # K1's count zeroed just before and read just after
@@ -3679,7 +4571,8 @@ def main(argv=None) -> int:
             f"equal the original CSR as int64")
     results.update(load=load, serve=serve, logcsr=logcsr, hotset=hot,
                    traversal=trav, crossover=cross, train=trn, gnn2=g2,
-                   segment_sum_gnn2=k2n,
+                   segment_sum_gnn2=k2n, moe=moe, lm_train=lmt,
+                   segment_sum_moe=k2m, flash_attention_moe=k3m,
                    segment_sum_full_graph=k2f,
                    segment_sum_backward=k2g, compile=comp,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
@@ -3709,7 +4602,8 @@ def main(argv=None) -> int:
         "shape": f"uint8[{k1['n']}*{k1['b']}] -> int32[{k1['n']}]",
     }, {
         "name": "segment_sum", "route": "cuda", "source": K2_CUDA_SOURCE,
-        "replaces": K2_TPU_KERNEL, "launches": gnn_k2 + train_k2 + g2_k2,
+        "replaces": K2_TPU_KERNEL,
+        "launches": gnn_k2 + train_k2 + g2_k2 + moe_k2 + lmt_k2,
         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
         "ms": k2["layer0"]["ms"], "plain_ms": k2["layer0"]["plain_ms"],
         "bound_ms": k2["layer0"]["bound_ms"],
@@ -3740,12 +4634,18 @@ def main(argv=None) -> int:
             "plain_ms", "library_ms", "bound_ms", "bound_by", "gb_per_s")}
             | {m: v["ms"] for m, v in r["designs"].items()}
             for label, r in k2n.items()},
+        "moe": {label: {key: r[key] for key in (
+            "e", "d", "n", "valid_edges", "design", "fastest", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "gb_per_s",
+            "cuda_launches_per_call")}
+            | {m: v["ms"] for m, v in r["designs"].items()}
+            for label, r in k2m.items()},
     }, {
         "name": "segment_sum_backward", "route": "cuda",
         "source": K2_CUDA_SOURCE, "replaces": K2_TPU_KERNEL,
         "note": ("K2's backward (a gather); the JAX package trains through "
                  "XLA's segment_sum and has no backward kernel"),
-        "launches": train_k2b + g2_k2b, "max_abs_err": 0.0,
+        "launches": train_k2b + g2_k2b + lmt_k2b, "max_abs_err": 0.0,
         "ms": k2g["full_graph"]["ms"],
         "plain_ms": k2g["full_graph"]["plain_ms"],
         "bound_ms": k2g["full_graph"]["bound_ms"],
@@ -3766,11 +4666,17 @@ def main(argv=None) -> int:
             "e", "d", "n", "valid_edges", "grad_rows_read", "vec", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "library")} for label, r in k2n.items()
-            if "backward" in r},
+            if "backward" in r}
+        | {label: {key: r["backward"][key] for key in (
+            "e", "d", "n", "valid_edges", "grad_rows_read", "vec", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "library", "cuda_launches_per_call")}
+            for label, r in k2m.items() if "backward" in r},
     }, {
         "name": "flash_attention", "route": "cuda", "source": K3_CUDA_SOURCE,
-        "replaces": K3_TPU_KERNEL, "launches": lm_k3,
-        "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+        "replaces": K3_TPU_KERNEL, "launches": lm_k3 + moe_k3,
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in [*k3.values(), *k3m.values()]),
         "ms": k3["prefill"]["ms"], "plain_ms": k3["prefill"]["plain_ms"],
         "bound_ms": k3["prefill"]["bound_ms"],
         "bound_by": k3["prefill"]["bound_by"],
@@ -3786,6 +4692,11 @@ def main(argv=None) -> int:
             "design", "dtype", "nsplit", "cuda_launches_per_call", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "max_abs_err")} for kind, r in k3.items()},
+        "moe": {kind: {key: r[key] for key in (
+            "design", "dtype", "b", "hq", "hkv", "sq", "kv_len", "dh",
+            "nsplit", "cuda_launches_per_call", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_call", "max_abs_err")}
+            for kind, r in k3m.items()},
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

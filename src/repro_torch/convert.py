@@ -104,17 +104,21 @@ def adamw_state_to_numpy(state: dict) -> dict:
 def transformer_params_from_numpy(params: dict, cfg, device=None) -> dict:
     """The JAX package's transformer params pytree as numpy (``embed``,
     ``final_norm_scale`` [, ``final_norm_bias``, ``lm_head``] and
-    ``layers`` with ``wq, wk, wv, wo, w_gate, w_up, w_down``, the norm
-    scales [and biases, ``bq, bk, bv``] stacked over the L layers; e.g.
+    ``layers`` stacked over the L layers: ``wq, wk, wv, wo``, the norm
+    scales [and biases, ``bq, bk, bv``], and either the dense FFN's
+    ``w_gate, w_up, w_down`` or the MoE's ``router, we_gate, we_up,
+    we_down`` [, ``ws_gate, ws_up, ws_down``, ``shared_gate``]; e.g.
     ``jax.tree_util.tree_map(np.asarray, jax_params)``) as the port's
-    params dict: the same keys and shapes, tensors in ``cfg.dtype`` on
-    ``device`` (None = the GPU, raises without one)."""
+    params dict: the same keys and shapes, tensors in ``cfg.dtype`` but
+    the MoE router, float32 in both packages, on ``device`` (None = the
+    GPU, raises without one)."""
     device = resolve_device(device)
 
-    def t(a):
+    def t(a, dtype=cfg.dtype):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=cfg.dtype)
+            device=device, dtype=dtype)
 
     out = {k: t(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = {k: t(v) for k, v in params["layers"].items()}
+    out["layers"] = {k: t(v, torch.float32 if k == "router" else cfg.dtype)
+                     for k, v in params["layers"].items()}
     return out

@@ -7,6 +7,8 @@ sharded and with the device-resident hot-set tier.
     python -m repro_torch.launch.serve --arch smollm-360m --reduced --tokens 32
     python -m repro_torch.launch.serve --arch smollm-360m --batch 8 \\
         --prompt-len 1024 --tokens 64
+    python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --batch 8 \\
+        --prompt-len 1024 --tokens 64
     python -m repro_torch.launch.serve --arch gcn-cora --reduced --requests 8
     python -m repro_torch.launch.serve --arch gcn-cora --requests 8 \\
         --batch 1024 --scale 18 --edge-factor 16 --trace-sample 4
@@ -16,11 +18,11 @@ sharded and with the device-resident hot-set tier.
         --traversal --requests 32 --batch 8 --shards 2 --replication 2 \\
         --hotset-bytes 1048576
 
-``--device cpu`` runs it on the CPU (the kernels' plain versions).  The
-JAX package's MoE LMs and its DIN serving are not ported yet: asking for
-them exits with a message saying so.  GNN serving takes ``gcn-cora`` and
-``pna``; the served batch carries none of MeshGraphNet's or DimeNet's
-fields, so those exit saying which.
+``--device cpu`` runs it on the CPU (the kernels' plain versions).  LM
+serving takes the dense and the MoE LMs.  The JAX package's DIN serving
+is not ported yet: asking for it exits with a message saying so.  GNN
+serving takes ``gcn-cora`` and ``pna``; the served batch carries none of
+MeshGraphNet's or DimeNet's fields, so those exit saying which.
 """
 
 from __future__ import annotations

@@ -1,12 +1,16 @@
-"""Training entry point of the port, on the GPU: GNN training from
-CompBin.
+"""Training entry point of the port, on the GPU: LM training from
+CompBin-packed token shards and GNN training from CompBin.
 
-Wires together ParaGrapher/CompBin/PG-Fuse data loading (sampled
-minibatches, the random-access query engine, or the full graph streamed
-on simulated hosts), the GNNs with the segment-sum kernel and its
-backward, AdamW, async checkpointing with restart-from-latest and
-straggler monitoring.
+Wires together ParaGrapher/CompBin/PG-Fuse data loading (token windows
+from a packed shard; sampled minibatches, the random-access query
+engine, or the full graph streamed on simulated hosts), the LMs (dense
+and MoE: the MoE combine on the segment-sum kernel and its backward,
+attention on its plain backends, the flash-attention kernel having no
+backward) and the GNNs with the segment-sum kernel and its backward,
+AdamW, async checkpointing with restart and straggler monitoring.
 
+    python -m repro_torch.launch.train --arch smollm-360m --reduced --device cpu --steps 20
+    python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --batch 4 --seq 512 --steps 10
     python -m repro_torch.launch.train --arch gcn-cora --reduced --device cpu --steps 20
     python -m repro_torch.launch.train --arch pna --full-graph --hosts 2 --steps 10
     python -m repro_torch.launch.train --arch pna --sampled --steps 10
@@ -18,8 +22,8 @@ MeshGraphNet and DimeNet train in the default minibatch mode only: the
 and asking for them exits saying so.
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions); the
-default is the GPU, and without one it raises.  The JAX package's LM and
-DIN training and its ``--compress-grads`` are not ported yet: asking for
+default is the GPU, and without one it raises.  The JAX package's DIN
+training and its ``--compress-grads`` are not ported yet: asking for
 them exits with a message naming their ROADMAP item.
 """
 
@@ -43,7 +47,6 @@ log = logging.getLogger("repro_torch.train")
 
 #: what asking for an unported training path says (ROADMAP Queue 1)
 NOT_PORTED = {
-    "lm": "LM training is not ported yet (ROADMAP Queue 1 item 5)",
     "recsys": "DIN training is not ported yet (ROADMAP Queue 1 item 6)",
     "compress_grads": "--compress-grads is not ported yet (ROADMAP Queue 1 "
                       "item 7, the distribution layer)",
@@ -52,7 +55,8 @@ NOT_PORTED = {
 
 class Batches:
     """An endless iterator of training batches, with what feeds it kept
-    in view: ``engine`` under ``--sampled``; under ``--full-graph`` the
+    in view: ``reader`` for the LMs; ``engine`` under ``--sampled``;
+    under ``--full-graph`` the
     simulated hosts' loads (``results``), the one ``batch``, and what the
     hosts were given (``path``, ``feature_path``, ``label_path``,
     ``open_kwargs``, ``align``).  ``close()`` releases the graph handles
@@ -78,6 +82,34 @@ class Batches:
 # ---------------------------------------------------------------------------
 # data generators
 # ---------------------------------------------------------------------------
+
+def _lm_batches(cfg, batch: int, seq: int, tmpdir: str, use_pgfuse: bool,
+                *, device=None) -> Batches:
+    """Token batches from a CompBin-packed shard through PG-Fuse: the JAX
+    package's 200,000-token shard (``np.random.default_rng(0)``), random
+    ``seq + 1``-token windows (seed 0) decoded on the host, as
+    ``{"tokens", "labels"}`` int64 tensors on ``device`` (the window and
+    the window shifted by one), two batches prefetched."""
+    from repro_torch.data import (PrefetchIterator, TokenShardReader,
+                                  write_token_shard)
+
+    device = resolve_device(device)
+    path = os.path.join(tmpdir, "tokens.ctok")
+    if not os.path.exists(path):
+        rng = np.random.default_rng(0)
+        write_token_shard(path, rng.integers(0, cfg.vocab, 200_000),
+                          cfg.vocab)
+    reader = TokenShardReader(path, use_pgfuse=use_pgfuse,
+                              pgfuse_block_size=1 << 16)
+
+    def to_device(b):
+        t = torch.as_tensor(b, dtype=torch.int64).to(device)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    it = PrefetchIterator(reader.batches(batch, seq, seed=0), depth=2,
+                          transform=to_device)
+    return Batches(it, closers=[reader.close, it.close], reader=reader)
+
 
 def _gnn_batches(arch_id: str, cfg, tmpdir: str, use_pgfuse: bool, *,
                  device=None) -> Batches:
@@ -255,27 +287,41 @@ def _gnn_full_graph_batches(arch_id: str, cfg, tmpdir: str, use_pgfuse: bool,
 def _make_step(arch_id: str, cfg, opt_cfg: AdamWConfig, family: str,
                compress_grads: bool = False, *, device=None):
     """``(init_fn, step)``: ``init_fn(seed)`` draws the params on
-    ``device`` (None = the GPU); ``step(state, batch) -> (state,
-    metrics)`` is one eager forward, backward (autograd; on the card
-    K2's backward kernel) and AdamW update, returning new tensors."""
-    if family != "gnn":
+    ``device`` (None = the GPU; an LM's from a generator there, a GNN's
+    from a CPU generator); ``step(state, batch) -> (state, metrics)`` is
+    one eager forward, backward (autograd; on the card K2's backward
+    kernel) and AdamW update, returning new tensors."""
+    if family not in ("lm", "gnn"):
         raise SystemExit(NOT_PORTED.get(family, f"{family} training is not "
                                         f"ported yet"))
     if compress_grads:
         raise SystemExit(NOT_PORTED["compress_grads"])
-    from repro_torch.launch.steps import _GNN_MODULES
-
-    mod = _GNN_MODULES[arch_id]
     device = resolve_device(device)
+    if family == "lm":
+        from repro_torch.models import transformer as tf
 
-    def init_fn(seed: int = 0) -> dict:
-        return mod.init_params(cfg, torch.Generator().manual_seed(seed),
-                               device=device)
+        def loss_fn(p, b):
+            return tf.loss_fn(p, b["tokens"], b["labels"], cfg)
+
+        def init_fn(seed: int = 0) -> dict:
+            return tf.init_params(
+                cfg, torch.Generator(device=device).manual_seed(seed))
+    else:
+        from repro_torch.launch.steps import _GNN_MODULES
+
+        mod = _GNN_MODULES[arch_id]
+
+        def loss_fn(p, b):
+            return mod.loss_fn(p, b, cfg)
+
+        def init_fn(seed: int = 0) -> dict:
+            return mod.init_params(cfg, torch.Generator().manual_seed(seed),
+                                   device=device)
 
     def step(state, batch):
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
-        loss = mod.loss_fn(params, batch, cfg)
+        loss = loss_fn(params, batch)
         grads = tree_unflatten(params, torch.autograd.grad(
             loss, tree_leaves(params)))
         new, opt, met = adamw_update(state["params"], grads, state["opt"],
@@ -286,12 +332,15 @@ def _make_step(arch_id: str, cfg, opt_cfg: AdamWConfig, family: str,
 
 
 def train(arch: str, *, steps: int = 50, reduced: bool = False,
-          device=None, full_graph: bool = False, sampled: bool = False,
+          device=None, batch: int = 8, seq: int = 64,
+          full_graph: bool = False, sampled: bool = False,
           hosts: int = 1, ckpt_dir=None, ckpt_every: int = 20,
           inject_failure_at=None, workdir: str = "/tmp/repro_torch_train",
           use_pgfuse: bool = True, compress_grads: bool = False) -> dict:
     """The CLI's training run; returns ``{"losses", "state",
-    "step_times_s", "batches"}`` (``batches`` closed)."""
+    "step_times_s", "batches"}`` (``batches`` closed).  ``batch`` and
+    ``seq`` size an LM's token windows (the JAX package's defaults, 8 x
+    64); a GNN ignores them."""
     if full_graph and sampled:
         raise SystemExit("--full-graph and --sampled are mutually exclusive")
     spec = get_arch(arch)
@@ -302,7 +351,10 @@ def train(arch: str, *, steps: int = 50, reduced: bool = False,
     init_fn, step_fn = _make_step(arch, cfg, opt_cfg, spec.family,
                                   compress_grads, device=device)
     os.makedirs(workdir, exist_ok=True)
-    if full_graph:
+    if spec.family == "lm":
+        batches = _lm_batches(cfg, batch, seq, workdir, use_pgfuse,
+                              device=device)
+    elif full_graph:
         batches = _gnn_full_graph_batches(arch, cfg, workdir, use_pgfuse,
                                           hosts, device=device)
     elif sampled:
@@ -344,6 +396,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="LM archs: token windows per step")
+    ap.add_argument("--seq", type=int, default=64,
+                    help="LM archs: tokens per window (labels shifted by "
+                         "one)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU-scale)")
     ap.add_argument("--device", default=None,
@@ -374,7 +431,8 @@ def main(argv=None) -> None:
     except KeyError as e:
         raise SystemExit(e.args[0]) from None
     train(args.arch, steps=args.steps, reduced=args.reduced,
-          device=args.device, full_graph=args.full_graph,
+          device=args.device, batch=args.batch, seq=args.seq,
+          full_graph=args.full_graph,
           sampled=args.sampled, hosts=args.hosts, ckpt_dir=args.ckpt_dir,
           ckpt_every=args.ckpt_every,
           inject_failure_at=args.inject_failure_at, workdir=args.workdir,

@@ -1,3 +1,3 @@
-"""Models of the port: GCN (``models/gnn/gcn.py``) and the dense
-decoder-only transformer (``models/transformer.py``, serving half); PNA,
-MeshGraphNet, DimeNet, the MoE FFN and DIN are not ported yet."""
+"""Models of the port: the GNNs (``models/gnn/``: GCN, PNA, MeshGraphNet,
+DimeNet) and the decoder-only transformer, dense and MoE
+(``models/transformer.py``); DIN is not ported yet."""

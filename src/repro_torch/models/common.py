@@ -1,7 +1,11 @@
 """Shared model building blocks (plain functions over tensors).
 
 ``dense_init``, ``mlp`` / ``init_mlp`` and ``cross_entropy_loss`` (the
-GNNs), ``rms_norm`` and ``layer_norm`` (the transformer).
+GNNs and the transformer), ``rms_norm`` and ``layer_norm`` (the
+transformer).  Where the JAX package computes in float32 whatever the
+input dtype, so does the port (:func:`wide`), but a float64 input stays
+float64: the gradient checks' float64 arbiter runs every operation in
+float64.
 """
 
 from __future__ import annotations
@@ -22,24 +26,32 @@ def dense_init(generator: torch.Generator, shape, scale: float | None = None,
     return (w * std).to(dtype=dtype, device=device)
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, the dtype the JAX package's norms, attention
+    scores, router and losses compute in, or as it is where it is
+    float64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis, computed in f32, cast back to x's dtype."""
-    xf = x.float()
+    """RMSNorm over the last axis, computed in f32 (:func:`wide`), cast
+    back to x's dtype."""
+    xf = wide(x)
     xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (xf * scale.float()).to(x.dtype)
+    return (xf * wide(scale)).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, computed in f32, cast back to x's
-    dtype."""
-    xf = x.float()
+    """LayerNorm over the last axis, computed in f32 (:func:`wide`), cast
+    back to x's dtype."""
+    xf = wide(x)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    y = (xf - mu) * torch.rsqrt(var + eps) * wide(scale)
     if bias is not None:
-        y = y + bias.float()
+        y = y + wide(bias)
     return y.to(x.dtype)
 
 
@@ -73,8 +85,9 @@ def init_mlp(generator: torch.Generator, sizes: list[int], names: list[str],
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore: int = -100) -> torch.Tensor:
-    """Mean token CE in f32; ``labels == ignore`` positions are masked."""
-    logits = logits.float()
+    """Mean token CE in f32 (:func:`wide`); ``labels == ignore``
+    positions are masked."""
+    logits = wide(logits)
     valid = labels != ignore
     labels_safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)

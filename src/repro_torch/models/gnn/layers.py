@@ -23,8 +23,11 @@ from repro_torch.kernels.segment_sum import segment_sum
 
 
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[idx] with idx == -1 -> zeros (padding)."""
-    out = x[idx.clamp(min=0)]
+    """x[idx] with idx == -1 -> zeros (padding).  An id at or above
+    ``x.shape[0]`` reads the last row, as the JAX package's gather
+    clamps it (``k2_grad``, K2's backward gather, zero-fills such a row
+    instead)."""
+    out = x[idx.clamp(0, max(x.shape[0] - 1, 0))]
     return torch.where((idx >= 0)[:, None], out, 0)
 
 

@@ -1,23 +1,36 @@
-"""Decoder-only transformer of the port (dense FFN) — plain functions over
-a params dict, mirroring the JAX package's ``models/transformer.py``.
+"""Decoder-only transformer family of the port (dense + MoE) — plain
+functions over a params dict, mirroring the JAX package's
+``models/transformer.py``.
 
-Covers the dense LM architectures through one config: GQA attention
+Covers the five LM architectures through one config: GQA attention
 (``n_kv_heads <= n_heads``), optional QKV bias (qwen2), RoPE with partial
-rotary (stablelm ``rope_pct=0.25``), RMSNorm or LayerNorm, SwiGLU FFN,
-tied or separate LM head.  Entry points for serving: ``forward``,
-``prefill`` (builds the KV cache) and ``decode_step`` (one token against
-it).  The MoE FFN (``moe_ffn``), the training entry points (``loss_fn``,
-``forward_hidden``) and the mesh options are not ported yet.
+rotary (stablelm ``rope_pct=0.25``), RMSNorm or LayerNorm, tied or
+separate LM head, and a dense SwiGLU FFN or the MoE FFN (:func:`moe_ffn`:
+routed top-k experts with capacity-based dispatch by sort + scatter, the
+``scatter`` and ``gather`` arms of ``moe_dispatch``, optional shared
+experts with a sigmoid gate).  Entry points: ``forward``, ``prefill``
+(builds the KV cache) and ``decode_step`` (one token against it) for
+serving; ``loss_fn`` and ``forward_hidden`` for training.  The mesh
+options raise (one card).
 
-Attention: on a CUDA tensor EVERY call — prefill and decode, whatever
-``attn_impl`` says — goes through the hand-written flash-attention kernel
-(:mod:`repro_torch.kernels.flash_attention`), handed the ``[B, S, H, dh]``
-projections and the live part of the cache as strided views.  On a CPU
-tensor the JAX package's own plain backends run: ``dense`` (materialised
-scores) or ``chunked`` (online softmax over KV chunks, Python loops in
-place of ``scan``; fully-future chunks are skipped, which leaves every
-number as it was).  The JAX transformer never calls its Pallas kernel
-(its docstring says the kernel implements the same contract on a TPU).
+Attention: serving on a CUDA tensor sends EVERY call — prefill and
+decode, whatever ``attn_impl`` says — through the hand-written
+flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`),
+handed the ``[B, S, H, dh]`` projections and the live part of the cache
+as strided views.  The kernel has no backward (neither has the JAX
+package's), so the training entry points (``loss_fn``,
+``forward_hidden``) take the plain backends on every device, as the
+JAX package trains through its jnp attention.  On a CPU tensor the JAX
+package's own plain backends run: ``dense`` (materialised scores) or
+``chunked`` (online softmax over KV chunks, Python loops in place of
+``scan``; fully-future chunks are skipped, which leaves every number as
+it was).
+
+MoE combine: the scatter arm's segment sum of the weighted expert
+outputs by token goes through the segment-sum kernel
+(:mod:`repro_torch.kernels.segment_sum`) on a CUDA tensor, and, where
+it requires grad, its backward kernel; the expert SwiGLU is batched
+matrix products (the JAX package computes it outside any Pallas kernel).
 
 KV cache: ``{"k": [L x tensor], "v": [L x tensor], "len": int}`` — one
 ``[B, Smax, Hk, dh]`` tensor per layer, written in place
@@ -37,7 +50,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels.flash_attention import attention_bshd
-from repro_torch.models.common import dense_init, layer_norm, rms_norm
+from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.models.common import (cross_entropy_loss, dense_init,
+                                       layer_norm, rms_norm, wide)
 
 Params = dict
 
@@ -61,7 +76,7 @@ class TransformerConfig:
     rope_pct: float = 1.0
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
-    # --- MoE (not ported yet: init_params and forward raise) ---
+    # --- MoE ---
     moe: bool = False
     n_experts: int = 0
     n_experts_padded: int = 0
@@ -128,12 +143,6 @@ class TransformerConfig:
         return self.n_params() - self.n_layers * (routed_all - routed_act)
 
 
-def _require_dense(cfg: TransformerConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (moe_ffn) are not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -142,15 +151,23 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> Params:
     """Random weights from ``generator`` in ``cfg.dtype`` (the JAX
     package's shapes and distributions, not its bits), on ``device``
-    (None: the generator's device)."""
-    _require_dense(cfg)
+    (None: the generator's device).  The MoE router is float32 whatever
+    ``cfg.dtype`` is; the expert weights hold ``e_pad`` slots (the
+    padded ones included) and are drawn a layer at a time, so the
+    float32 draw never holds more than one layer's."""
     d, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    L, f, dt = cfg.n_layers, cfg.d_ff, cfg.dtype
+    L, dt = cfg.n_layers, cfg.dtype
     device = generator.device if device is None else device
 
     def W(*shape, scale=None):
         return dense_init(generator, shape, scale=scale, dtype=dt,
                           device=device)
+
+    def W_by_layer(*shape):
+        out = torch.empty((L, *shape), dtype=dt, device=device)
+        for i in range(L):
+            out[i] = W(*shape)
+        return out
 
     def const(value, *shape):
         return torch.full(shape, value, dtype=dt, device=device)
@@ -170,9 +187,25 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         layers["bq"] = const(0.0, L, H, dh)
         layers["bk"] = const(0.0, L, Hk, dh)
         layers["bv"] = const(0.0, L, Hk, dh)
-    layers["w_gate"] = W(L, d, f)
-    layers["w_up"] = W(L, d, f)
-    layers["w_down"] = W(L, f, d)
+    if cfg.moe:
+        E, fe = cfg.e_pad, cfg.moe_d_ff
+        layers["router"] = dense_init(generator, (L, d, cfg.n_experts),
+                                      dtype=torch.float32, device=device)
+        layers["we_gate"] = W_by_layer(E, d, fe)
+        layers["we_up"] = W_by_layer(E, d, fe)
+        layers["we_down"] = W_by_layer(E, fe, d)
+        if cfg.n_shared_experts:
+            fs = cfg.shared_d_ff
+            layers["ws_gate"] = W(L, d, fs)
+            layers["ws_up"] = W(L, d, fs)
+            layers["ws_down"] = W(L, fs, d)
+            if cfg.shared_expert_gate:
+                layers["shared_gate"] = W(L, d, 1)
+    else:
+        f = cfg.d_ff
+        layers["w_gate"] = W(L, d, f)
+        layers["w_up"] = W(L, d, f)
+        layers["w_down"] = W(L, f, d)
     params = {"embed": W(cfg.vocab, d, scale=0.02),
               "final_norm_scale": const(1.0, d), "layers": layers}
     if cfg.norm == "layernorm":
@@ -201,7 +234,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     angles = positions[..., None].float() * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    xr = x[..., :rot].float()
+    xr = wide(x[..., :rot])
     x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
@@ -218,14 +251,14 @@ def _dense_attention(q, k, v, *, causal: bool, q_offset: int) -> torch.Tensor:
     T, Hk = k.shape[1], k.shape[2]
     g = H // Hk
     qh = q.reshape(B, S, Hk, g, dh)
-    scores = torch.einsum("bshgd,bthd->bhgst", qh.float(),
-                          k.float()) * (dh ** -0.5)
+    scores = torch.einsum("bshgd,bthd->bhgst", wide(qh),
+                          wide(k)) * (dh ** -0.5)
     if causal:
         qpos = torch.arange(S, device=q.device)[:, None] + q_offset
         kpos = torch.arange(T, device=q.device)[None, :]
         scores = torch.where(kpos <= qpos, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    out = torch.einsum("bhgst,bthd->bshgd", probs, wide(v))
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
@@ -239,16 +272,16 @@ def _chunked_attention(q, k, v, *, causal: bool, q_offset: int, chunk: int,
     T, Hk = k.shape[1], k.shape[2]
     g = H // Hk
     bq, bk = min(chunk, S), min(chunk, T)
-    qf = q.float().reshape(B, S, Hk, g, dh)
-    kf, vf = k.float(), v.float()
+    qf = wide(q).reshape(B, S, Hk, g, dh)
+    kf, vf = wide(k), wide(v)
     outs = []
     for q0 in range(0, S, bq):
         qb = qf[:, q0:q0 + bq]
         nb = qb.shape[1]
         qpos = q0 + torch.arange(nb, device=q.device)[:, None] + q_offset
-        m = torch.full((B, Hk, g, nb), -1e30, device=q.device)
-        l = torch.zeros((B, Hk, g, nb), device=q.device)
-        acc = torch.zeros((B, Hk, g, nb, dh), device=q.device)
+        m = qf.new_full((B, Hk, g, nb), -1e30)
+        l = qf.new_zeros((B, Hk, g, nb))
+        acc = qf.new_zeros((B, Hk, g, nb, dh))
         for k0 in range(0, T, bk):
             if causal and k0 > q0 + nb - 1 + q_offset:
                 break                        # every later chunk too
@@ -306,6 +339,118 @@ def swiglu(x, wg, wu, wd):
     return h @ wd
 
 
+def moe_capacity(cfg: TransformerConfig, T: int, *, no_drop: bool = False,
+                 eval_mode: bool = False) -> int:
+    """Slots per expert for ``T`` tokens: ``T*K`` under ``no_drop``
+    (nothing is ever dropped), a 2x capacity factor capped at ``T*K``
+    under ``eval_mode``, ``cfg.capacity_factor`` otherwise — the JAX
+    package's Python arithmetic."""
+    K, Ep = cfg.top_k, cfg.e_pad
+    if no_drop:
+        return T * K
+    if eval_mode:
+        return min(T * K, max(1, int(2.0 * T * K / Ep)))
+    return max(1, int(cfg.capacity_factor * T * K / Ep))
+
+
+def route(x: torch.Tensor, router: torch.Tensor, cfg: TransformerConfig):
+    """Router of [T, d] tokens: ``(probs [T, E], gates [T, K], idx [T,
+    K])`` — softmax over the float32 logits, then the top k, the gates
+    renormalised only under ``router_norm_topk``."""
+    probs = torch.softmax(wide(x) @ wide(router), dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.router_norm_topk:
+        gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    return probs, gates, idx
+
+
+def _count(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of ``0..n-1`` occurs in ``ids`` (int64; no host
+    sync, unlike ``torch.bincount`` on the card)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device) \
+        .scatter_add_(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
+
+
+def sort_assignments(idx: torch.Tensor, n_slots: int, capacity: int):
+    """The T*K assignments of ``idx`` [T, K] sorted by expert, stably (so
+    within an expert in token order, as ``jnp.argsort``): ``(order,
+    e_sorted, t_sorted, pos, keep)``, ``pos`` the assignment's place
+    within its expert (unique there) and ``keep = pos < capacity``."""
+    T, K = idx.shape
+    expert_flat = idx.reshape(-1)
+    tok_flat = torch.arange(T, device=idx.device).repeat_interleave(K)
+    order = torch.argsort(expert_flat, stable=True)
+    e_sorted = expert_flat[order]
+    t_sorted = tok_flat[order]
+    counts = _count(e_sorted, n_slots)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * K, device=idx.device) - starts[e_sorted]
+    return order, e_sorted, t_sorted, pos, pos < capacity
+
+
+def moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig, *,
+            no_drop: bool = False, eval_mode: bool = False):
+    """Routed top-k MoE with capacity-based dispatch (sort + scatter).
+
+    x: [T, d] (flattened tokens).  Returns (out [T, d] in x's dtype,
+    lb_loss float32 scalar).  ``no_drop``, ``eval_mode``: see
+    :func:`moe_capacity`.  An assignment past its expert's capacity is
+    dropped from the dispatch and weighted 0 in the combine.  The
+    scatter arm's combine is a segment sum of the [T*K, d] float32
+    weighted outputs by token (:func:`segment_sum`: the kernel on a CUDA
+    tensor); the gather arm's, the JAX package's sum over K."""
+    T, d = x.shape
+    E, Ep = cfg.n_experts, cfg.e_pad
+    C = moe_capacity(cfg, T, no_drop=no_drop, eval_mode=eval_mode)
+    probs, gates, idx = route(x, lp["router"], cfg)
+
+    # Switch-style load-balance loss over the *routed* experts
+    me = probs.mean(0)
+    ce = _count(idx, E).float() / idx.numel()
+    lb_loss = cfg.lb_loss_coef * E * torch.sum(me * ce)
+
+    order, e_sorted, t_sorted, pos, keep = sort_assignments(idx, Ep, C)
+    slot = e_sorted * C + pos.clamp(max=C - 1)          # a kept one's slot
+    if cfg.moe_dispatch == "gather":
+        # slot -> token gather: buf[e, c] = x[token filling slot (e, c)]
+        counts = _count(e_sorted, Ep)
+        starts = torch.cumsum(counts, 0) - counts
+        c = torch.arange(C, device=x.device)
+        slot_tok = t_sorted[(starts[:, None] + c).clamp(max=idx.numel() - 1)]
+        valid = (c[None, :] < counts[:, None])[..., None]
+        buf = torch.where(valid, x[slot_tok], 0)
+    else:
+        # overflow assignments go to one spare slot past the buffer
+        flat = torch.where(keep, slot, Ep * C)
+        buf = x.new_zeros(Ep * C + 1, d).index_put(
+            (flat,), x[t_sorted])[:Ep * C].view(Ep, C, d)
+    # per-expert SwiGLU: [Ep, C, d] x [Ep, d, f]
+    h = torch.nn.functional.silu(torch.bmm(buf, lp["we_gate"])) * \
+        torch.bmm(buf, lp["we_up"])
+    yb = torch.bmm(h, lp["we_down"]).view(Ep * C, d)
+
+    if cfg.moe_dispatch == "gather":
+        # combine by gather in assignment order + a sum over K
+        pos_unsorted = torch.empty_like(pos).index_copy_(0, order, pos)
+        y_flat = yb[idx.reshape(-1) * C + pos_unsorted.clamp(max=C - 1)]
+        w = gates.reshape(-1) * (pos_unsorted < C)
+        out = (wide(y_flat.view(T, -1, d))
+               * w.view(T, -1)[..., None]).sum(1)
+    else:
+        gate_sorted = gates.reshape(-1)[order] * keep
+        out = segment_sum(wide(yb[slot]) * gate_sorted[:, None],
+                          t_sorted.to(torch.int32), T)
+
+    if cfg.n_shared_experts:
+        shared = swiglu(x, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+        if cfg.shared_expert_gate:
+            # x.astype(f32) @ shared_gate promotes the gate in JAX
+            shared = shared * torch.sigmoid(
+                wide(x) @ wide(lp["shared_gate"])).to(shared.dtype)
+        out = out + wide(shared)
+    return out.to(x.dtype), lb_loss
+
+
 def _norm(x, scale, bias, cfg: TransformerConfig):
     if cfg.norm == "layernorm":
         return layer_norm(x, scale, bias)
@@ -313,9 +458,12 @@ def _norm(x, scale, bias, cfg: TransformerConfig):
 
 
 def _layer(x, lp: Params, cfg: TransformerConfig, positions, cache_k,
-           cache_v, cache_len: int):
-    """One transformer block.  cache_*: [B, Smax, Hk, dh] or None; the
-    new keys and values are written into them in place."""
+           cache_v, cache_len: int, training: bool = False):
+    """One transformer block: ``(x, lb_loss)``.  cache_*: [B, Smax, Hk,
+    dh] or None; the new keys and values are written into them in place.
+    ``training`` sends the attention to its plain backends (the kernel
+    has no backward); serving (a cache) sizes the MoE buffer for no drop
+    at B*S <= 4096 and at a 2x capacity factor above."""
     B, S, d = x.shape
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
@@ -339,32 +487,42 @@ def _layer(x, lp: Params, cfg: TransformerConfig, positions, cache_k,
         kk = kk.repeat_interleave(H // Hk, dim=2)
         vv = vv.repeat_interleave(H // Hk, dim=2)
 
-    attn = attention(q, kk, vv, cfg, causal=True, q_offset=q_offset)
+    attend = attention_plain if training else attention
+    attn = attend(q, kk, vv, cfg, causal=True, q_offset=q_offset)
     x = x + attn.reshape(B, S, H * dh) @ lp["wo"].reshape(H * dh, d)
     h = _norm(x, lp["ffn_norm_scale"], lp.get("ffn_norm_bias"), cfg)
-    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if not cfg.moe:
+        return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
+    serving = cache_k is not None
+    y, lb = moe_ffn(h.reshape(B * S, d), lp, cfg,
+                    no_drop=serving and B * S <= 4096, eval_mode=serving)
+    return x + y.view(B, S, d), lb
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            cache: Optional[Params]) -> torch.Tensor:
-    """Final-normed hidden states [B, S, d]; advances ``cache["len"]``."""
-    _require_dense(cfg)
+            cache: Optional[Params], training: bool = False):
+    """Final-normed hidden states [B, S, d] and the load-balance loss
+    summed over layers (float32; 0 for a dense FFN); advances
+    ``cache["len"]``."""
     S = tokens.shape[1]
     x = params["embed"][tokens].to(cfg.dtype)
     cache_len = cache["len"] if cache is not None else 0
     positions = torch.arange(S, device=tokens.device)[None, :] + cache_len
+    lb_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = {name: t[i] for name, t in layers.items()}
         if cache is not None:
-            x = _layer(x, lp, cfg, positions, cache["k"][i], cache["v"][i],
-                       cache_len)
+            x, lb = _layer(x, lp, cfg, positions, cache["k"][i],
+                           cache["v"][i], cache_len)
         else:
-            x = _layer(x, lp, cfg, positions, None, None, 0)
+            x, lb = _layer(x, lp, cfg, positions, None, None, 0, training)
+        lb_sum = lb_sum + lb
     if cache is not None:
         cache["len"] = cache_len + S
-    return _norm(x, params["final_norm_scale"], params.get("final_norm_bias"),
-                 cfg)
+    x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"),
+              cfg)
+    return x, lb_sum
 
 
 def _logits(params: Params, x: torch.Tensor,
@@ -379,10 +537,28 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig, *,
 
     With ``cache`` (see :func:`init_cache`) the call is a prefill (S > 1)
     or decode (S == 1) step at position ``cache["len"]``; the cache is
-    updated in place and returned.  ``lb_loss`` is 0 (dense FFN only)."""
-    x = _hidden(params, tokens, cfg, cache)
-    lb = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    updated in place and returned.  ``lb_loss`` is the MoE load-balance
+    loss summed over layers (0 for a dense FFN)."""
+    x, lb = _hidden(params, tokens, cfg, cache)
     return _logits(params, x, cfg), cache, lb
+
+
+def forward_hidden(params: Params, tokens: torch.Tensor,
+                   cfg: TransformerConfig):
+    """forward() without the LM head and without a cache, on the
+    training route (the plain attention backends): (final hidden states
+    [B, S, d], lb_loss)."""
+    return _hidden(params, tokens, cfg, None, training=True)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Causal LM loss: mean token cross-entropy in float32 plus the
+    load-balance loss, through :func:`forward_hidden`.  ``ce_chunk`` is
+    accepted and the loss computed unchunked (the chunking shapes only
+    the JAX program's memory)."""
+    x, lb = forward_hidden(params, tokens, cfg)
+    return cross_entropy_loss(_logits(params, x, cfg), labels) + lb
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -406,7 +582,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     computes every position's logits and keeps the last)."""
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_len or S, device=tokens.device)
-    x = _hidden(params, tokens, cfg, cache)
+    x, _ = _hidden(params, tokens, cfg, cache)
     return _logits(params, x[:, -1], cfg), cache
 
 
@@ -414,5 +590,5 @@ def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
                 cfg: TransformerConfig):
     """One-token decode: tokens [B, 1] -> (logits [B, V], cache updated
     in place)."""
-    x = _hidden(params, tokens, cfg, cache)
+    x, _ = _hidden(params, tokens, cfg, cache)
     return _logits(params, x[:, -1], cfg), cache

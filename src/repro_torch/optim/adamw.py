@@ -50,17 +50,19 @@ def tree_leaves(tree: Any) -> list:
 def tree_unflatten(like: Any, leaves) -> Any:
     """``like``'s structure with its leaves replaced, in
     :func:`tree_leaves` order, by ``leaves`` (an iterator or a list)."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(like)
+def _build(t: Any, it) -> Any:
+    # a module-level function, not a closure: a recursive closure is a
+    # reference cycle through its own cell, which kept ``leaves`` (every
+    # new AdamW state tensor) alive until the cyclic collector ran
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

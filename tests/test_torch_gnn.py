@@ -95,6 +95,29 @@ def test_gather_degree_scatter_match_jax():
            ref_layers.scatter_mean(jnp.asarray(msgs), jnp.asarray(dst), n))
 
 
+def test_gather_clamps_ids_at_or_above_n_as_the_reference_does():
+    """JAX's gather clamps an id at or above N to the last row; -1 (and
+    any negative id) is zero-filled."""
+    x = np.arange(12, dtype=np.float32).reshape(4, 3)
+    idx = np.array([0, -1, 3, 4, 7], np.int32)
+    got = port_layers.gather(_t(x), _t(idx))
+    want = np.asarray(ref_layers.gather(jnp.asarray(x), jnp.asarray(idx)))
+    np.testing.assert_array_equal(want, x[[0, 0, 3, 3, 3]] * [[1], [0], [1],
+                                                            [1], [1]])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gather_matches_the_reference_on_ids_past_n(seed):
+    rng = np.random.default_rng(seed)
+    n, e, d = int(rng.integers(1, 30)), 200, 5
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    idx = rng.integers(-1, n + 3, e).astype(np.int32)
+    np.testing.assert_array_equal(
+        port_layers.gather(_t(x), _t(idx)).numpy(),
+        np.asarray(ref_layers.gather(jnp.asarray(x), jnp.asarray(idx))))
+
+
 def test_scatter_sum_keeps_the_reference_result_dtype():
     msgs = torch.ones(5, 3, dtype=torch.bfloat16)
     dst = torch.tensor([0, 1, 1, -1, 2])
@@ -169,7 +192,8 @@ def test_configs_and_params_mirror_the_reference():
     ref_spec = ref_get_arch("gcn-cora")
     assert (spec.arch_id, spec.family, spec.citation) == \
         (ref_spec.arch_id, ref_spec.family, ref_spec.citation)
-    assert port_configs.ARCH_IDS == ["smollm-360m", "qwen2-1.5b",
+    assert port_configs.ARCH_IDS == ["qwen2-moe-a2.7b", "dbrx-132b",
+                                     "smollm-360m", "qwen2-1.5b",
                                      "stablelm-1.6b", "dimenet",
                                      "meshgraphnet", "gcn-cora", "pna"]
     for make in ("make_config", "make_reduced"):
@@ -185,10 +209,13 @@ def test_configs_and_params_mirror_the_reference():
         for k in r:
             assert tuple(p[k].shape) == r[k].shape and p[k].dtype == torch.float32
     assert set(spec.shapes) == set(ref_spec.shapes)
-    for arch in ("qwen2-moe-a2.7b", "dbrx-132b", "din"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            port_configs.get_arch(arch)
-    assert port_configs.NOT_PORTED == ("qwen2-moe-a2.7b", "dbrx-132b", "din")
+    with pytest.raises(KeyError, match="not ported yet"):
+        port_configs.get_arch("din")
+    assert port_configs.NOT_PORTED == ("din",)
+    ref_ids = __import__("repro.configs", fromlist=["x"]).ARCH_IDS
+    assert port_configs.ARCH_IDS == [a for a in ref_ids if a != "din"]
+    for arch in ("qwen2-moe-a2.7b", "dbrx-132b"):
+        assert port_configs.get_arch(arch).family == "lm"
     with pytest.raises(KeyError, match="unknown arch"):
         port_configs.get_arch("no-such-arch")
     from repro_torch.models.gnn import dimenet, meshgraphnet, pna

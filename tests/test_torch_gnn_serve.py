@@ -191,7 +191,8 @@ def test_cli_serves_and_writes_metrics(tmp_path, caplog):
     assert metrics["query.batches"] > 0
     assert metrics["obs.sampled_traces"] == 2
     for argv, msg in ((["--arch", "smollm-360m", "--traversal"], "gnn arch"),
-                      (["--arch", "qwen2-moe-a2.7b"], "not ported"),
+                      (["--arch", "qwen2-moe-a2.7b", "--traversal"],
+                       "gnn arch"),
                       (["--arch", "din"], "not ported")):
         with pytest.raises(SystemExit, match=msg):
             port_serve.main(argv + ["--device", "cpu",

@@ -677,3 +677,70 @@ def test_pna_serving_goes_through_k2(cuda, tmp_path):
         assert launches == ((1 + 6 * cfg.n_layers) if dev is cuda else 0)
     np.testing.assert_allclose(logits[str(cuda)], logits["cpu"], rtol=1e-5,
                                atol=1e-5)
+
+
+def test_gather_on_ids_past_n_does_not_assert_on_the_card(cuda):
+    """``gather`` clamps ids at or above N on the card as on the CPU (an
+    unclamped index was a device-side assert that poisons the context)."""
+    from repro_torch.models.gnn.layers import gather
+
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    idx = torch.tensor([0, -1, 3, 4, 7])
+    got = gather(x.to(cuda), idx.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), gather(x, idx))
+    assert torch.equal(got.cpu()[[2, 3, 4]], x[[3, 3, 3]])
+    assert not got[1].any()
+
+
+def _small_moe(**kw):
+    """A small MoE config the card's K3 takes (head dim 64): 2 layers, 6
+    experts in 8 slots, top-2, shared experts with their gate."""
+    from repro_torch.models.transformer import TransformerConfig
+    return TransformerConfig(
+        name="moe-small", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+        d_head=64, d_ff=0, vocab=512, qkv_bias=True, moe=True, n_experts=6,
+        n_experts_padded=8, top_k=2, moe_d_ff=96, n_shared_experts=2,
+        shared_d_ff=128, shared_expert_gate=True, dtype=torch.float32, **kw)
+
+
+def test_moe_serving_goes_through_k3_and_k2(cuda, smoke):
+    """``chip_smoke.moe_check`` on a small MoE: K3 on every attention
+    call and K2 on every combine (one each a layer a step), routing held
+    to the plain path's as integers, logits within 1e-3."""
+    out = smoke.moe_check(cuda, _small_moe(), batch=2, prompt_len=40,
+                          n_tokens=4)
+    assert out["k3_launches"] == out["k2_launches"] == 2 * 4
+    assert out["routing"]["flips"] == 0
+
+
+@pytest.mark.parametrize("dispatch", ["scatter", "gather"])
+def test_moe_training_step_on_the_card(cuda, smoke, dispatch):
+    """One loss and its gradients of the small MoE: K2 forward and its
+    backward one a layer on the scatter arm (none on the gather arm);
+    the loss within chip_smoke's training tolerance of the plain path,
+    the gradients held to the float64 plain path."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+
+    cfg = _small_moe(moe_dispatch=dispatch)
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 33), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    per_step = (2, 2) if dispatch == "scatter" else (0, 0)
+
+    def loss_fn(p, c=cfg):
+        return tf.loss_fn(p, toks[:, :-1], toks[:, 1:], c)
+
+    def exact():
+        c64 = dataclasses.replace(cfg, dtype=torch.float64)
+        with smoke.plain_segment_sum(smoke.segment_sum_f64):
+            return smoke.loss_and_grads(
+                lambda p: loss_fn(p, c64),
+                {k: (v.double() if not isinstance(v, dict) else
+                     {kk: vv.double() for kk, vv in v.items()})
+                 for k, v in params.items()})[1]
+
+    out = smoke.first_step_parity(loss_fn, params, per_step, exact=exact)
+    assert np.isfinite(out["loss"])

@@ -55,7 +55,9 @@ def test_every_slice_module_is_present():
                  "query.hotset", "query.traversal", "query.loadgen",
                  "query.sharded", "optim.adamw", "checkpoint.checkpointer",
                  "distributed.fault_tolerance", "data.multihost",
-                 "launch.train", "graph.reorder", "launch.compile_graph"):
+                 "launch.train", "graph.reorder", "launch.compile_graph",
+                 "data.tokens", "configs.qwen2_moe_a2_7b",
+                 "configs.dbrx_132b"):
         assert f"repro_torch.{want}" in mods, want
     for kernel in ("compbin_decode", "segment_sum", "flash_attention"):
         assert (SRC / "repro_torch" / "csrc" / f"{kernel}.cu").is_file()
@@ -124,6 +126,10 @@ def test_device_none_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.train("gcn-cora", reduced=True, steps=1,
                     workdir=str(tmp_path / "train"))
+    for arch in ("smollm-360m", "qwen2-moe-a2.7b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.train(arch, reduced=True, steps=1,
+                        workdir=str(tmp_path / "lm_train"))
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import make_gnn_server
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -134,6 +140,9 @@ def test_device_none_raises_without_cuda(tmp_path):
     lm = get_arch("smollm-360m").make_reduced()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm(lm, batch=1, prompt_len=2, n_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm(get_arch("dbrx-132b").make_reduced(), batch=1,
+                 prompt_len=2, n_tokens=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer_params_from_numpy(
             {"embed": np.zeros((4, 2)), "layers": {}}, lm)

@@ -90,7 +90,14 @@ def test_cli_serves_the_lm_family(tmp_path, caplog):
                          "--tokens", "4"])
     assert any("prefill" in r.message and "tok/s" in r.message
                for r in caplog.records)
-    for arch in ("qwen2-moe-a2.7b", "din"):
-        with pytest.raises(SystemExit, match="not ported"):
+    for arch in ("qwen2-moe-a2.7b", "dbrx-132b"):
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger="repro_torch.serve"):
             port_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
-                             "--workdir", str(tmp_path)])
+                             "--batch", "2", "--prompt-len", "8",
+                             "--tokens", "3"])
+        assert any("prefill" in r.message and "tok/s" in r.message
+                   for r in caplog.records), arch
+    with pytest.raises(SystemExit, match="not ported"):
+        port_serve.main(["--arch", "din", "--reduced", "--device", "cpu",
+                         "--workdir", str(tmp_path)])
