@@ -39,7 +39,12 @@ K3, every combine on K2, each model first held in f32 at 2 layers to
 the plain path, routing as integers), train smollm-360m at full width
 and qwen2-moe-a2.7b at full width on 2 layers (``[lm_train]``: the MoE
 combine's gradient on K2's backward, a restart, the first step held to
-the plain path), time K2, its backward and K3 at the MoE shapes, and
+the plain path), time K2, its backward and K3 at the MoE shapes, serve,
+score and train DIN at full width over a 10M-item catalog (``[din]``:
+``serve_din``, the same requests CompBin-packed and decoded on the card
+by K1, a bulk batch, retrieval of one user against 262,144 candidates,
+10 AdamW steps with a restart and 3 with ``--compress-grads`` on a
+world-size-1 NCCL group; every logit held to the plain CPU path), and
 compile the load file with the graph
 compiler and serve the hot-set trace from the compiled file -- checks
 every result against an independent plain computation, and prints what
@@ -54,8 +59,9 @@ is printed.  Without a CUDA device it exits with code 2 at once.
 
 The load/serve/LogCSR/hot-set/traversal/GNN/train/gnn2/compile phases
 are plain functions of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
-n_tokens)``, ``[moe]`` and ``[lm_train]`` of ``device`` with a
-``reduced`` switch, so the CPU tests run the same code at a small size.
+n_tokens)``, ``[moe]``, ``[lm_train]`` and ``[din]`` of ``device`` with
+a ``reduced`` switch, so the CPU tests run the same code at a small
+size.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -90,7 +97,8 @@ from repro_torch.obs import Tracer, tier_times  # noqa: E402
 from repro_torch.kernels.compbin_decode import (compbin_decode,  # noqa: E402
                                                 compbin_decode_ref,
                                                 stream_bucket_ids)
-from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim.adamw import (adamw_update, tree_leaves,  # noqa: E402
+                                     tree_map, tree_unflatten)
 from repro_torch.kernels.flash_attention import (attention_bshd,  # noqa: E402
                                                  attention_ref,
                                                  flash_attention, plan)
@@ -3901,6 +3909,739 @@ def moe_slice(device, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [din]: DIN served, scored and trained at full width (10M-item catalog)
+# ---------------------------------------------------------------------------
+
+#: DIN's logits on the card against the plain CPU f32 path on the same
+#: requests (rtol and atol), as GCN's
+DIN_TOL = 1e-5
+#: ``[din]``'s sizes: ``serve_p99``'s requests of ``batch``, the
+#: ``serve_bulk`` batch, the retrieval candidates (the shape's 1,000,000
+#: cut to 262,144: unchunked, its transients are ~4x ``serve_bulk``'s
+#: and do not fit in 80 GB), ``train_batch``'s examples a step, the
+#: first step's gradient-parity batch, the AdamW steps, the compressed
+#: steps, the steps on one repeated batch (where the loss must fall), and
+#: the restart's checkpoint interval and injected failure
+DIN_SIZES = dict(requests=64, batch=512, bulk=262_144, candidates=262_144,
+                 train_batch=65_536, parity_batch=8192, steps=10,
+                 compress_steps=3, repeat_steps=3, ckpt_every=5, fail_at=7)
+
+
+def to_cpu(tree):
+    """A detached CPU copy of every tensor leaf of ``tree``."""
+    return tree_map(lambda t: t.detach().to("cpu"), tree)
+
+
+@contextlib.contextmanager
+def recorded_din_batches(batches: list):
+    """Every batch ``din.forward`` scores appended (by reference) to
+    ``batches``: what ``serve_din`` drew, to hold its logits to the plain
+    CPU path on the same requests."""
+    from repro_torch.models.recsys import din
+
+    forward = din.forward
+
+    def recording(params, batch, cfg):
+        batches.append(batch)
+        return forward(params, batch, cfg)
+
+    din.forward = recording
+    try:
+        yield
+    finally:
+        din.forward = forward
+
+
+def din_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """``got`` (logits on the card) finite and within ``DIN_TOL`` of
+    ``want`` (the plain CPU path's); returns the max abs error."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    assert got.shape == want.shape and bool(torch.isfinite(got).all()) and \
+        torch.allclose(got, want, rtol=DIN_TOL, atol=DIN_TOL), \
+        f"{what}: max abs err {err} beyond {DIN_TOL} of the plain CPU path"
+    return err
+
+
+def check_decoded_ids(ids: torch.Tensor, packed: np.ndarray, b: int) -> int:
+    """The request ids K1 decoded equal, as int64, the host decode
+    (``core/compbin.py::decode_ids``) of the same packed bytes; returns
+    how many."""
+    from repro_torch.core import compbin as core_compbin
+
+    want = core_compbin.decode_ids(packed, b).astype(np.int64)
+    got = ids.detach().cpu().numpy()
+    assert got.dtype == np.int64 and np.array_equal(got, want), \
+        "K1's decoded request ids differ from decode_ids"
+    return int(want.size)
+
+
+def din_packed_serve(cfg, params, device, *, batch: int, n_requests: int,
+                     seed: int = 0) -> dict:
+    """``serve_p99``'s traffic as ``examples/serve_din_requests.py`` sends
+    it: per request the history and candidate item ids drawn from
+    ``np.random.default_rng(seed)`` in [0, n_items) and CompBin-packed at
+    ``b = bytes_per_vertex(n_items)`` (3 for 10M items) off the clock;
+    timed: ONE host-to-device copy of the packed bytes, K1's decode of
+    ``batch * (seq_len + 1)`` ids, categories as ``id % n_cates``, the
+    forward.  After the timed loop the decoded ids are held to
+    ``decode_ids`` and every request's logits to the plain CPU path."""
+    from repro_torch.core import compbin as core_compbin
+    from repro_torch.models.recsys import din
+
+    on_gpu = torch.device(device).type == "cuda"
+    b = core_compbin.bytes_per_vertex(cfg.n_items)
+    rng = np.random.default_rng(seed)
+    n_hist = batch * cfg.seq_len
+    lat, sent, decoded, logits = [], [], [], []
+    host0, k1_0 = core_compbin.host_decoded_bytes(), compbin_decode.launches
+    with torch.inference_mode():
+        for _ in range(n_requests):
+            hist = rng.integers(0, cfg.n_items, (batch, cfg.seq_len))
+            cand = rng.integers(0, cfg.n_items, batch)
+            packed = np.concatenate([
+                core_compbin.encode_ids(hist.reshape(-1).astype(np.uint64),
+                                        b),
+                core_compbin.encode_ids(cand.astype(np.uint64), b)])
+            _cuda_sync(device)
+            t0 = time.perf_counter()
+            ids = compbin_decode(torch.from_numpy(packed).to(device),
+                                 b).long()
+            h, c = ids[:n_hist].view(batch, cfg.seq_len), ids[n_hist:]
+            out = din.forward(params, {"hist_items": h,
+                                       "hist_cates": h % cfg.n_cates,
+                                       "cand_item": c,
+                                       "cand_cate": c % cfg.n_cates}, cfg)
+            _cuda_sync(device)
+            lat.append(time.perf_counter() - t0)
+            sent.append(packed)
+            decoded.append(ids)
+            logits.append(out)
+    launches = compbin_decode.launches - k1_0
+    assert core_compbin.host_decoded_bytes() == host0, "host decode"
+    assert launches == (n_requests if on_gpu else 0), launches
+    ids_checked = sum(check_decoded_ids(ids, packed, b)
+                      for ids, packed in zip(decoded, sent))
+    cpu_params, worst = to_cpu(params), 0.0
+    with torch.inference_mode():
+        for i, ids in enumerate(decoded):
+            ids = ids.cpu()
+            h, c = ids[:n_hist].view(batch, cfg.seq_len), ids[n_hist:]
+            want = din.forward(cpu_params, {
+                "hist_items": h, "hist_cates": h % cfg.n_cates,
+                "cand_item": c, "cand_cate": c % cfg.n_cates}, cfg)
+            worst = max(worst, din_close(logits[i], want,
+                                         f"packed request {i}"))
+    wire = sum(p.nbytes for p in sent)
+    ms = np.array(lat[1:]) * 1e3
+    return {"b": b, "ids_per_request": n_hist + batch,
+            "latencies_s": lat, "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "wire_bytes": wire, "int32_bytes": wire // b * 4,
+            "k1_launches": launches, "ids_checked": ids_checked,
+            "max_abs_err": worst}
+
+
+def din_served(cfg, params, device, *, batch: int, n_requests: int,
+               check_rows: int = 512) -> dict:
+    """``serve_din`` (``n_requests`` of ``batch``; the first dropped from
+    its p50 / p99) with every request recorded; each request's first
+    ``check_rows`` logits held to the plain CPU path on the same
+    request."""
+    from repro_torch.launch import serve as sv
+    from repro_torch.models.recsys import din
+
+    seen = []
+    with recorded_din_batches(seen):
+        logits, timings = sv.serve_din(cfg, batch=batch,
+                                       n_requests=n_requests, device=device,
+                                       params=params)
+    assert logits.shape == (n_requests, batch), logits.shape
+    cpu_params, worst = to_cpu(params), 0.0
+    with torch.inference_mode():
+        for i, b in enumerate(seen):
+            rows = {k: v[:check_rows].cpu() for k, v in b.items()}
+            want = din.forward(cpu_params, rows, cfg)
+            worst = max(worst, din_close(
+                torch.from_numpy(logits[i][:check_rows]), want,
+                f"request {i}"))
+    return {**timings, "max_abs_err": worst,
+            "rows_checked": n_requests * min(check_rows, batch),
+            "finite": bool(np.isfinite(logits).all())}
+
+
+def din_retrieval(cfg, params, device, *, candidates: int,
+                  check_rows: int = 512, seed: int = 3) -> dict:
+    """``score_candidates``: one user's history (seq_len ids, -1 padding
+    drawn) against ``candidates`` candidates in one call, timed after a
+    warm-up call on ``check_rows`` of them; the first ``check_rows``
+    scores held to the plain CPU path."""
+    from repro_torch.models.recsys import din
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.int64).to(device)
+
+    batch = {"hist_items": t(rng.integers(-1, cfg.n_items, cfg.seq_len)),
+             "hist_cates": t(rng.integers(0, cfg.n_cates, cfg.seq_len)),
+             "cand_items": t(rng.integers(0, cfg.n_items, candidates)),
+             "cand_cates": t(rng.integers(0, cfg.n_cates, candidates))}
+    head = {**batch, "cand_items": batch["cand_items"][:check_rows],
+            "cand_cates": batch["cand_cates"][:check_rows]}
+    with torch.inference_mode():
+        din.score_candidates(params, head, cfg)              # warm-up
+        _cuda_sync(device)
+        t0 = time.perf_counter()
+        scores = din.score_candidates(params, batch, cfg)
+        _cuda_sync(device)
+        secs = time.perf_counter() - t0
+        want = din.score_candidates(to_cpu(params), to_cpu(head), cfg)
+    assert scores.shape == (candidates,), scores.shape
+    err = din_close(scores[:check_rows], want, "retrieval scores")
+    assert bool(torch.isfinite(scores).all()), "non-finite scores"
+    return {"candidates": candidates, "s": secs, "max_abs_err": err}
+
+
+def _din_kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(w in low for w in ("index", "gather", "radix", "sort")):
+        return "gather"
+    return _kernel_class(name)
+
+
+def din_step_split(cfg, state, batch, opt_cfg) -> dict:
+    """Where one DIN training step spends the card's time, in the step's
+    two halves, each under the profiler (:func:`profile_device`): the
+    loss and its gradients (GEMMs; the table gather and its backward:
+    ``index`` / ``indexing_backward`` and their sorts; copies; the rest:
+    elementwise, concatenations, the dense gradient's fill, the loss),
+    then AdamW's update (all of it elementwise); None where the trace
+    holds no device time."""
+    from repro_torch.models.recsys import din
+
+    grads = {}
+
+    def loss_and_backward():
+        p = tree_map(lambda v: v.detach().requires_grad_(), state["params"])
+        loss = din.loss_fn(p, batch, cfg)
+        grads["g"] = tree_unflatten(p, torch.autograd.grad(
+            loss, tree_leaves(p)))
+
+    wall_a, sums_a, top_a = profile_device(
+        loss_and_backward, _din_kernel_class,
+        ("gemm", "gather", "copy", "other"))
+    wall_b, sums_b, top_b = profile_device(
+        lambda: adamw_update(state["params"], grads.pop("g"), state["opt"],
+                             opt_cfg),
+        _kernel_class, ("gemm", "copy", "other"))
+    dev = {"gemm": sums_a["gemm"], "gather": sums_a["gather"],
+           "adamw": sum(sums_b.values()),
+           "rest": sums_a["copy"] + sums_a["other"]}
+    wall = (wall_a + wall_b) * 1e3
+    busy = sum(dev.values())
+    return {"wall_ms": wall, "device_ms": dev if busy else None,
+            "idle_share": 1 - busy / wall if busy else None,
+            "top_kernels": sorted(top_a + top_b, reverse=True)[:8],
+            "gather_kernels": sorted(
+                (k for k in top_a if _din_kernel_class(k[2]) == "gather"),
+                reverse=True)}
+
+
+def check_loss_falls(losses: list) -> None:
+    """On one repeated batch each step's loss below the one before."""
+    assert len(losses) >= 2 and np.isfinite(losses).all() and all(
+        b < a for a, b in zip(losses, losses[1:])), \
+        f"the loss does not fall on a repeated batch: {losses}"
+
+
+def din_parity_check(loss: float, plain_loss: float, grads: dict,
+                     plain_grads: dict, exact: dict) -> dict:
+    """The first step on the card against the plain CPU f32 path: the
+    loss within ``TRAIN_LOSS_RTOL``; each gradient held by
+    :func:`exact_close` to the float64 run (``exact``) at the plain
+    path's :func:`relative_distance` from it (f32 GEMMs round otherwise
+    on the card than on the CPU)."""
+    assert abs(loss - plain_loss) <= TRAIN_LOSS_RTOL * abs(plain_loss), \
+        f"first-step loss {loss} != the plain CPU path's {plain_loss}"
+    scale = relative_distance(plain_grads, exact)
+    return {"loss": loss, "plain_loss": plain_loss,
+            "loss_rel_err": abs(loss - plain_loss) / abs(plain_loss),
+            "plain_relative_distance": scale,
+            "grad_max_abs_err_vs_f64": {
+                k: exact_close(grads[k], x, scale, f"first-step grad {k}")
+                for k, x in exact.items()}}
+
+
+def din_first_step(cfg, params, batch, device) -> dict:
+    """:func:`din_parity_check` on ``batch``: the loss and gradients on
+    ``device`` in f32, on CPU copies in f32, and on ``device`` in
+    float64."""
+    from repro_torch.models.recsys import din
+
+    def loss_fn(b):
+        return lambda p: din.loss_fn(p, b, cfg)
+
+    loss, grads = loss_and_grads(loss_fn(batch), params)
+    plain_loss, plain = loss_and_grads(loss_fn(to_cpu(batch)),
+                                       to_cpu(params))
+    _, exact = loss_and_grads(loss_fn(batch),
+                              tree_map(torch.Tensor.double, params))
+    return din_parity_check(loss, plain_loss, grads,
+                            {k: v.to(device) for k, v in plain.items()},
+                            exact)
+
+
+@contextlib.contextmanager
+def checked_ef(calls: list):
+    """Every ``ef_compress_psum`` call of the compressed step checked as
+    it returns: per leaf the new residual finite and within half the
+    quantisation step, ``|e| <= scale / 2`` (scale = the group's amax of
+    grad + residual over the levels, plus one f32 rounding of that
+    amax), and at a world of one the mean equal to grad + residual - e
+    within two such roundings.  ``calls`` gets, per call, the worst
+    ``|e| / (scale / 2)`` and the bytes the int8 sum sent against
+    f32's."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import compression
+
+    fn = compression.ef_compress_psum
+
+    def checking(grads, ef, group=None, *, axis_size, outer_group=None):
+        mean, new = fn(grads, ef, group, axis_size=axis_size,
+                       outer_group=outer_group)
+        levels = max(1, 127 // axis_size)
+        one = dist.get_world_size(group) == 1 and outer_group is None
+        worst, n = 0.0, 0
+        for g, e, m, e2 in zip(tree_leaves(grads), tree_leaves(ef),
+                               tree_leaves(mean), tree_leaves(new)):
+            x = g.float() + e
+            amax = x.abs().max().reshape(1)
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+            amax = float(amax[0])
+            half = max(amax, 1e-12) / levels / 2
+            slack = float(torch.finfo(torch.float32).eps) * amax
+            emax = float(e2.abs().max())
+            assert math.isfinite(emax), "ef residual not finite"
+            assert emax <= half + slack, \
+                f"ef residual {emax} beyond half the quantisation step {half}"
+            if one:
+                off = float((m - (x - e2)).abs().max())
+                assert off <= 2 * slack, \
+                    f"compressed mean off grad + residual - e by {off}"
+            worst = max(worst, emax / half)
+            n += g.numel()
+        calls.append({"leaves": len(tree_leaves(grads)), "elements": n,
+                      "worst_residual_share": worst, "int8_bytes": n,
+                      "f32_bytes": 4 * n})
+        return mean, new
+
+    compression.ef_compress_psum = checking
+    try:
+        yield
+    finally:
+        compression.ef_compress_psum = fn
+
+
+def din_train(cfg, device, workdir: str, *, train_batch: int,
+              parity_batch: int, steps: int, compress_steps: int,
+              repeat_steps: int, ckpt_every: int, fail_at: int,
+              seed: int = 0) -> dict:
+    """DIN trained through the training CLI's pieces (``launch/train.py``:
+    ``_din_batches``, ``_make_step`` with the JAX package's AdamW config,
+    ``process_group`` and the compressed step):
+
+    1. ``steps`` timed steps on fresh batches of ``train_batch``: finite
+       losses (the labels are independent of the ids, so over fresh
+       batches the loss cannot fall below ~ln 2); the first step's loss
+       held to the plain CPU f32 path on the same params and batch (a
+       forward) within ``TRAIN_LOSS_RTOL``; peak memory; one more step
+       profiled (:func:`din_step_split`); then ``repeat_steps`` steps on
+       one repeated batch, where the loss must fall;
+    2. the restart (a failure at ``fail_at``, checkpoints every
+       ``ckpt_every``, the batches replayed from the restored step) held
+       to step 1's run by :func:`check_restart`;
+    3. the first step's gradients at ``parity_batch``
+       (:func:`din_first_step`);
+    4. ``compress_steps`` steps with ``--compress-grads`` on a world of
+       one (NCCL on the card), every residual checked
+       (:func:`checked_ef`)."""
+    from repro_torch.distributed.fault_tolerance import ResilientTrainer
+    from repro_torch.launch import train as tr
+    from repro_torch.models.recsys import din
+    from repro_torch.optim import AdamWConfig, adamw_init, ef_state_init
+
+    on_gpu = torch.device(device).type == "cuda"
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps,
+                          master_f32=True)
+    init_fn, step = tr._make_step("din", cfg, opt_cfg, "recsys",
+                                  device=device)
+    t0 = time.perf_counter()
+    source = tr._din_batches(cfg, train_batch, device=device)
+    batches = [next(source) for _ in range(steps + 1)]
+    draw_s = time.perf_counter() - t0
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+    # 1. the timed steps, the first step's loss, the split, a repeated batch
+    state = {"params": init_fn(seed)}
+    state["opt"] = adamw_init(state["params"], opt_cfg)
+    start = to_cpu(state["params"])
+    losses, secs = [], []
+    for b in batches[:steps]:
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+        _cuda_sync(device)
+        secs.append(time.perf_counter() - t0)
+    assert np.isfinite(losses).all(), losses
+    peak = torch.cuda.max_memory_allocated(device) if on_gpu else None
+    with torch.no_grad():
+        plain_first = float(din.loss_fn(start, to_cpu(batches[0]), cfg))
+    first_err = abs(losses[0] - plain_first) / abs(plain_first)
+    assert first_err <= TRAIN_LOSS_RTOL, \
+        f"first-step loss {losses[0]} != the plain CPU path's {plain_first}"
+    out = {"batch": train_batch, "seq": cfg.seq_len, "draw_s": draw_s,
+           "params": sum(t.numel() for t in tree_leaves(state["params"])),
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(state)),
+           "losses": losses, "step_s": secs,
+           "step_p50_s": statistics.median(secs[1:]),
+           "first_loss_plain": plain_first, "first_loss_rel_err": first_err,
+           "max_memory_allocated": peak}
+    if on_gpu:
+        out["step_split"] = din_step_split(cfg, state, batches[steps],
+                                           opt_cfg)
+    repeat, rep_losses = state, []
+    for _ in range(repeat_steps):
+        repeat, met = step(repeat, batches[steps])
+        rep_losses.append(float(met["loss"]))
+    check_loss_falls(rep_losses)
+    out["repeated_batch_losses"] = rep_losses
+    clean = {"params": to_cpu(state["params"])}
+    del state, repeat
+    gc.collect()
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    # 2. the restart on the same batches replayed
+    t_restart = time.perf_counter()
+    resume = (fail_at // ckpt_every) * ckpt_every
+    ckpt_dir = os.path.join(workdir, "din_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    inputs, seen = {}, []
+
+    def recording(st, b):
+        n = recording.calls
+        recording.calls += 1
+        if n in (resume, fail_at):
+            inputs[n] = state_fingerprint(st)
+        return step(st, b)
+
+    recording.calls = 0
+    first = {"params": init_fn(seed)}
+    first["opt"] = adamw_init(first["params"], opt_cfg)
+    trainer = ResilientTrainer(recording, first, ckpt_dir=ckpt_dir,
+                               ckpt_every=ckpt_every, keep_last=1)
+    del first
+    restored = trainer.run(
+        iter(batches[:fail_at + 1] + batches[resume:steps]), n_steps=steps,
+        inject_failure_at=fail_at,
+        on_metrics=lambda s, m: seen.append((s, float(m["loss"]))))
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(ckpt_dir) for f in fs)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    assert [s for s, _ in seen] == list(range(1, fail_at + 1)) + list(
+        range(resume + 1, steps + 1)), seen
+    restored = {"params": restored["params"]}
+    del trainer
+    gc.collect()
+    on_dev = lambda tree: tree_map(lambda t: t.to(device), tree)  # noqa: E731
+    out["restart"] = {"fail_at": fail_at, "ckpt_every": ckpt_every,
+                      "steps_replayed": fail_at - resume,
+                      "checkpoint_bytes": ckpt_bytes,
+                      **check_restart(inputs[fail_at], inputs[resume],
+                                      [x for _, x in seen[fail_at:]],
+                                      losses[resume:], restored,
+                                      {"params": on_dev(clean["params"])},
+                                      on_dev(start))}
+    del restored, clean, inputs
+    gc.collect()
+    if on_gpu:
+        torch.cuda.empty_cache()
+    out["restart"]["wall_s"] = time.perf_counter() - t_restart
+
+    # 3. the first step's gradients at the parity batch
+    t_parity = time.perf_counter()
+    pb = {k: v[:parity_batch] for k, v in batches[0].items()}
+    out["parity"] = {"batch": parity_batch,
+                     **din_first_step(cfg, on_dev(start), pb, device),
+                     "wall_s": time.perf_counter() - t_parity}
+    del start
+
+    # 4. --compress-grads on a world of one
+    calls, closses, csecs = [], [], []
+    with tr.process_group(device) as group:
+        backend = str(torch.distributed.get_backend(group))
+        _, cstep = tr._make_step("din", cfg, opt_cfg, "recsys", True,
+                                 device=device)
+        state = {"params": init_fn(seed)}
+        state["opt"] = adamw_init(state["params"], opt_cfg)
+        state["ef"] = ef_state_init(state["params"])
+        with checked_ef(calls):
+            for b in batches[:compress_steps]:
+                t0 = time.perf_counter()
+                state, met = cstep(state, b)
+                closses.append(float(met["loss"]))
+                _cuda_sync(device)
+                csecs.append(time.perf_counter() - t0)
+    assert len(calls) == compress_steps and np.isfinite(closses).all()
+    assert all(bool(torch.isfinite(e).all())
+               for e in tree_leaves(state["ef"]))
+    out["compressed"] = {"backend": backend, "losses": closses,
+                         "step_s": csecs,
+                         "step_p50_s": statistics.median(csecs),
+                         "ef_calls": calls}
+    # the item-table gradient's ids (one step's history), for
+    # :func:`din_table_grad`
+    out["table_grad_ids"] = batches[0]["hist_items"].reshape(-1)
+    del state, batches
+    gc.collect()
+    if on_gpu:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_din(device, workdir: str, *, reduced: bool = False,
+              sizes: dict = None, seed: int = 0) -> dict:
+    """``[din]``: DIN at full width (embed 18, seq 100, attention MLP
+    80-40, final MLP 200-80, 10,000,000 items x 10,000 categories; the
+    reduced config with ``reduced``), its parameters drawn on the card:
+
+    - ``serve_p99``: ``requests`` x ``batch`` through ``serve_din``
+      (:func:`din_served`), then the same count with the item ids
+      CompBin-packed as the repo's DIN request example sends them, K1
+      decoding them on the card (:func:`din_packed_serve`);
+    - ``serve_bulk``: one batch of ``bulk`` through ``serve_din``;
+    - retrieval: one user against ``candidates`` (:func:`din_retrieval`);
+    - training (:func:`din_train`).
+
+    Every logit on the card is held to the plain CPU f32 path; K1's
+    launches are the packed requests (``k1_launches``)."""
+    from repro_torch.configs.shapes import RecsysShape
+    from repro_torch.launch.model_flops import din_model_flops
+    from repro_torch.models.recsys import din
+
+    t_start = time.perf_counter()
+    sz = {**DIN_SIZES, **(sizes or {})}
+    on_gpu = torch.device(device).type == "cuda"
+    spec = get_arch("din")
+    cfg = spec.make_reduced() if reduced else spec.make_config()
+    t0 = time.perf_counter()
+    params = din.init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(seed))
+    _cuda_sync(device)
+    out = {"config": {k: getattr(cfg, k) for k in (
+        "name", "embed_dim", "seq_len", "n_items", "n_cates", "attn_mlp",
+        "mlp")},
+        "params": sum(t.numel() for t in tree_leaves(params)),
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params)),
+        "init_s": time.perf_counter() - t0, "sizes": sz}
+
+    def flops(kind, batch, n=0):
+        return din_model_flops(cfg, RecsysShape(kind, batch, kind, n))
+
+    out["serve"] = din_served(cfg, params, device, batch=sz["batch"],
+                              n_requests=sz["requests"])
+    out["serve"]["flops"] = flops("serve", sz["batch"])
+    out["packed"] = din_packed_serve(cfg, params, device, batch=sz["batch"],
+                                     n_requests=sz["requests"], seed=seed)
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    bulk = din_served(cfg, params, device, batch=sz["bulk"], n_requests=2)
+    bulk.update(s=bulk["latencies_s"][1], flops=flops("serve", sz["bulk"]),
+                max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                                      if on_gpu else None))
+    bulk["flops_per_s"] = bulk["flops"] / bulk["s"]
+    out["bulk"] = bulk
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    ret = din_retrieval(cfg, params, device, candidates=sz["candidates"])
+    ret.update(flops=flops("retrieval", 1, sz["candidates"]),
+               max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                                     if on_gpu else None))
+    ret["flops_per_s"] = ret["flops"] / ret["s"]
+    out["retrieval"] = ret
+    del params
+    gc.collect()
+    if on_gpu:
+        torch.cuda.empty_cache()
+    out["train"] = din_train(
+        cfg, device, workdir, seed=seed, **{k: sz[k] for k in (
+            "train_batch", "parity_batch", "steps", "compress_steps",
+            "repeat_steps", "ckpt_every", "fail_at")})
+    out["train"]["flops"] = flops("train", sz["train_batch"])
+    out["k1_launches"] = out["packed"]["k1_launches"]
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def log_din(r: dict) -> None:
+    """The ``[din]`` lines."""
+    c, s, p, bk, rt, tr = (r["config"], r["serve"], r["packed"], r["bulk"],
+                           r["retrieval"], r["train"])
+    sz = r["sizes"]
+    log(f"[din] {c['name']} (embed {c['embed_dim']}, seq {c['seq_len']}, "
+        f"attention MLP {c['attn_mlp']}, MLP {c['mlp']}, {c['n_items']} "
+        f"items x {c['n_cates']} categories): {r['params']} parameters, "
+        f"{r['param_bytes']} B f32, drawn on the device in "
+        f"{r['init_s']:.2f} s")
+    log(f"[din] serve_p99: {sz['requests']} requests of {sz['batch']} "
+        f"through serve_din: p50 {s['p50_ms']:.3f} ms, p99 "
+        f"{s['p99_ms']:.3f} ms (requests 2..{sz['requests']}), "
+        f"{s['flops'] / (s['p50_ms'] * 1e-3) / 1e12:.3f} TFLOP/s at p50; "
+        f"logits within {DIN_TOL} of the plain CPU path on "
+        f"{s['rows_checked']} rows (max abs err {s['max_abs_err']:.3g})")
+    log(f"[din] serve_p99 packed: the same count, item ids CompBin-packed "
+        f"at b={p['b']} ({p['ids_per_request']} ids a request), one H2D "
+        f"copy + K1 + forward: p50 {p['p50_ms']:.3f} ms, p99 "
+        f"{p['p99_ms']:.3f} ms; wire {p['wire_bytes']} B against "
+        f"{p['int32_bytes']} B as int32 "
+        f"({100 * (1 - p['wire_bytes'] / p['int32_bytes']):.1f} % less); "
+        f"K1 launches {p['k1_launches']}; {p['ids_checked']} ids equal "
+        f"decode_ids as int64; logits within {DIN_TOL} of the plain CPU "
+        f"path (max abs err {p['max_abs_err']:.3g})")
+    log(f"[din] serve_bulk: one batch of {sz['bulk']}: {bk['s'] * 1e3:.3f} "
+        f"ms, {bk['flops']:.4g} FLOP by din_model_flops, "
+        f"{bk['flops_per_s'] / 1e12:.3f} TFLOP/s; max_memory_allocated "
+        f"{bk['max_memory_allocated']} B; first {min(512, sz['bulk'])} rows "
+        f"within {DIN_TOL} of the plain CPU path (max abs err "
+        f"{bk['max_abs_err']:.3g})")
+    log(f"[din] retrieval: one user against {rt['candidates']} candidates "
+        f"(the shape's 1,000,000 cut): {rt['s'] * 1e3:.3f} ms, "
+        f"{rt['flops']:.4g} FLOP, {rt['flops_per_s'] / 1e12:.3f} TFLOP/s; "
+        f"max_memory_allocated {rt['max_memory_allocated']} B; first "
+        f"{min(512, rt['candidates'])} scores within {DIN_TOL} of the plain "
+        f"CPU path (max abs err {rt['max_abs_err']:.3g})")
+    log(f"[din] train_batch: {tr['batch']} x {tr['seq']} a step, "
+        f"{len(tr['losses'])} AdamW steps on fresh batches (drawn in "
+        f"{tr['draw_s']:.2f} s), {tr['params']} parameters, state "
+        f"{tr['state_bytes']} B: loss {tr['losses'][0]:.6f} -> "
+        f"{tr['losses'][-1]:.6f} (finite; the labels carry no signal, so "
+        f"~ln 2); step p50 {tr['step_p50_s'] * 1e3:.3f} ms (steps "
+        + ", ".join(f"{t * 1e3:.1f}" for t in tr["step_s"])
+        + f" ms; {tr['flops']:.4g} FLOP a step, "
+        f"{tr['flops'] / tr['step_p50_s'] / 1e12:.3f} TFLOP/s); "
+        f"max_memory_allocated {tr['max_memory_allocated']} B; first-step "
+        f"loss within {tr['first_loss_rel_err']:.3g} (<= {TRAIN_LOSS_RTOL}) "
+        f"of the plain CPU path; on one repeated batch "
+        + " -> ".join(f"{x:.6f}" for x in tr["repeated_batch_losses"]))
+    sp = tr.get("step_split") or {}
+    log(f"[din] one step (torch.profiler, its two halves): wall "
+        f"{sp.get('wall_ms', float('nan')):.3f} ms; device "
+        + ("not measured (no device time in the trace)"
+           if not sp.get("device_ms") else ", ".join(
+               f"{k} {v:.3f} ms" for k, v in sp["device_ms"].items())
+           + f"; idle share {sp['idle_share']:.3f}; top kernels (ms, "
+           f"launches, name): " + "; ".join(
+               f"{ms:.3f} {n} {name}" for ms, n, name in
+               sp["top_kernels"])))
+    if sp.get("gather_kernels"):
+        log("[din] one step's gather class (ms, launches, name): "
+            + "; ".join(f"{ms:.3f} {n} {name}"
+                        for ms, n, name in sp["gather_kernels"]))
+    rs, par, cp = tr["restart"], tr["parity"], tr["compressed"]
+    log(f"[din] restart: failure injected at step {rs['fail_at']}, "
+        f"checkpoints every {rs['ckpt_every']} ({rs['checkpoint_bytes']} B "
+        f"each), {rs['steps_replayed']} step(s) replayed; resumed from the "
+        f"checkpointed state bit for bit; losses after the restore within "
+        f"{rs['loss_rel_err']:.3g}; final params off the uninjected run's "
+        f"by at most {max(d['share'] for d in rs['drift'].values()):.3g} of "
+        f"the distance moved (<= {RESTART_PARAM_SHARE}); "
+        f"{rs['wall_s']:.1f} s")
+    log(f"[din] first step at {par['batch']} x {tr['seq']}: loss "
+        f"{par['loss']:.7f} vs the plain CPU path's {par['plain_loss']:.7f} "
+        f"(rel err {par['loss_rel_err']:.3g}); grads held to float64 (the "
+        f"plain path's worst relative distance "
+        f"{par['plain_relative_distance']:.3g}; max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in
+                    par["grad_max_abs_err_vs_f64"].items()) + ")")
+    log(f"[din] --compress-grads on a {cp['backend']} world of one: "
+        f"{len(cp['losses'])} steps, loss " + ", ".join(
+            f"{x:.6f}" for x in cp["losses"])
+        + f"; step p50 {cp['step_p50_s'] * 1e3:.3f} ms; residual at most "
+        f"{max(c['worst_residual_share'] for c in cp['ef_calls']):.4f} of "
+        f"half the quantisation step; {cp['ef_calls'][0]['int8_bytes']} B "
+        f"int8 on the wire a step against "
+        f"{cp['ef_calls'][0]['f32_bytes']} B f32; phase wall "
+        f"{r['wall_s']:.1f} s")
+
+
+def din_slice(device, workdir: str) -> dict:
+    """``main``'s phase 15g, also run alone to rehearse it: ``[din]``
+    (:func:`phase_din`) with K1's count zeroed just before and read just
+    after, then K1 timed at the packed request's shape."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    compbin_decode.launches = 0
+    r = phase_din(device, workdir)
+    k1_launches = compbin_decode.launches
+    assert k1_launches == r["k1_launches"] > 0, (k1_launches, r)
+    log_din(r)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+    p = r["packed"]
+    k1 = measure_kernel(random_packed(p["ids_per_request"], p["b"], gen),
+                        p["b"], flush)
+    log(f"[kernel] compbin_decode at the DIN request shape b={k1['b']} "
+        f"n={k1['n']}: kernel {k1['ms']:.4f} ms  bound {k1['bound_ms']:.4f} "
+        f"ms ({k1['bound_by']})  plain {k1['plain_ms']:.4f} ms  library "
+        f"none; main-path launches {k1_launches}")
+    tg = din_table_grad(r["train"].pop("table_grad_ids"),
+                        r["config"]["n_items"], r["config"]["embed_dim"],
+                        flush, gen)
+    log(f"[din] item-table gradient, f32[{tg['e']},{tg['d']}] rows summed "
+        f"by item id into [{tg['n']},{tg['d']}] ({tg['valid_edges']} valid "
+        f"ids): autograd's index_put_(accumulate) {tg['autograd_ms']:.4f} ms; "
+        f"K2 {tg['design']} {tg['ms']:.4f} ms ("
+        + ", ".join(f"{m} {v['ms']:.4f}" for m, v in tg["designs"].items())
+        + f"), bit for bit equal to its plain version on integer rows; "
+        f"index_add_ {tg['library_ms']:.4f} ms; bound {tg['bound_ms']:.4f} "
+        f"ms ({tg['bound_by']})")
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"din": r, "k1": k1, "k1_launches": k1_launches,
+            "table_grad": tg}
+
+
+def din_table_grad(ids: torch.Tensor, n: int, d: int, flush,
+                   gen: torch.Generator) -> dict:
+    """The DIN item table's gradient at one training step's shape (the
+    ``[B * S, d]`` history rows summed by item id into ``[n, d]``, ids of
+    -1 dropped), as autograd computes it (``index_put_`` with
+    accumulation into zeros, ids clamped as the forward's gather clamps
+    them) beside K2 on the same contract (:func:`
+    measure_segment_sum_full_graph`: both designs held bit for bit,
+    timed, ``index_add_``), for the ROADMAP lever that would route it
+    through K2.  Not on any path the port runs."""
+    r = measure_segment_sum_full_graph(ids, n, (d,), flush, gen)["widths"][d]
+    rows = torch.randn(ids.numel(), d, generator=gen, device="cuda")
+    safe = (ids.clamp(0, n - 1),)
+    rows = torch.where((ids >= 0)[:, None], rows, 0)
+    r["autograd_ms"] = time_cuda(lambda: torch.zeros(
+        n, d, device="cuda").index_put_(safe, rows, accumulate=True),
+        flush=flush)
+    return r
+
+
+# ---------------------------------------------------------------------------
 # [compile]: the graph compiler on the load file, then a cold engine on
 # the compiled file answering the hot-set trace
 # ---------------------------------------------------------------------------
@@ -4544,6 +5285,13 @@ def main(argv=None) -> int:
         moe_k3, moe_k2 = moe["k3_launches"], moe["k2_launches"]
         lmt_k2, lmt_k2b = ms["lm_train_k2"], ms["lm_train_k2_grad"]
 
+        # phase 15g: [din] served, scored and trained at full width (10M
+        # items), the packed requests decoded by K1; K1's count zeroed just
+        # before and read just after (din_slice)
+        ds = din_slice(device, workdir)
+        din_r, k1d, din_k1 = ds["din"], ds["k1"], ds["k1_launches"]
+        k2d = ds["table_grad"]
+
         # phase 16: [compile] the load file through the graph compiler,
         # the hot-set trace through a cold engine on the compiled file;
         # K1's count zeroed just before and read just after
@@ -4573,6 +5321,8 @@ def main(argv=None) -> int:
                    traversal=trav, crossover=cross, train=trn, gnn2=g2,
                    segment_sum_gnn2=k2n, moe=moe, lm_train=lmt,
                    segment_sum_moe=k2m, flash_attention_moe=k3m,
+                   din=din_r, kernel_din_request=k1d,
+                   segment_sum_din_table_grad=k2d,
                    segment_sum_full_graph=k2f,
                    segment_sum_backward=k2g, compile=comp,
                    h2d=h2d, gnn=gnn, segment_sum=k2,
@@ -4595,11 +5345,16 @@ def main(argv=None) -> int:
         "name": "compbin_decode", "route": "cuda", "source": CUDA_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": (main_path_launches + hot_k1 + trav_k1 + gnn_k1
-                     + train_k1 + g2_k1 + comp_k1),
+                     + train_k1 + g2_k1 + din_k1 + comp_k1),
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
         "shape": f"uint8[{k1['n']}*{k1['b']}] -> int32[{k1['n']}]",
+        "din_request": {"shape": f"uint8[{k1d['n']}*{k1d['b']}] -> "
+                                 f"int32[{k1d['n']}]",
+                        "launches": din_k1, **{key: k1d[key] for key in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "max_abs_err")}},
     }, {
         "name": "segment_sum", "route": "cuda", "source": K2_CUDA_SOURCE,
         "replaces": K2_TPU_KERNEL,
@@ -4640,6 +5395,10 @@ def main(argv=None) -> int:
             "cuda_launches_per_call")}
             | {m: v["ms"] for m, v in r["designs"].items()}
             for label, r in k2m.items()},
+        "din_table_grad": {key: k2d[key] for key in (
+            "e", "d", "n", "valid_edges", "design", "fastest", "ms",
+            "plain_ms", "library_ms", "autograd_ms", "bound_ms", "bound_by",
+            "gb_per_s")} | {m: v["ms"] for m, v in k2d["designs"].items()},
     }, {
         "name": "segment_sum_backward", "route": "cuda",
         "source": K2_CUDA_SOURCE, "replaces": K2_TPU_KERNEL,

@@ -72,6 +72,13 @@ def gcn_params_from_numpy(params: dict, device=None) -> dict:
     return gnn_params_from_numpy(params, device)
 
 
+def din_params_from_numpy(params: dict, device=None) -> dict:
+    """The JAX package's DIN params (``item_table``, ``cate_table`` and
+    the ``attn`` / ``mlp`` dicts of dense layers, as numpy arrays) as the
+    port's: :func:`gnn_params_from_numpy`."""
+    return gnn_params_from_numpy(params, device)
+
+
 def adamw_state_from_numpy(state: dict, device=None) -> dict:
     """The JAX package's AdamW state (``{"step", "m", "v"[, "master"]}``
     with the moments shaped and nested like the params, as numpy arrays,

@@ -1,3 +1,5 @@
-"""Launchers of the port: LM serving and GCN inference serving
-(``python -m repro_torch.launch.serve``) and the LM FLOP formula
+"""Launchers of the port: serving (LM, DIN, GNN inference, traversals:
+``python -m repro_torch.launch.serve``), training (``python -m
+repro_torch.launch.train``), the graph compiler
+(``launch/compile_graph.py``) and the model FLOP formulas
 (``launch/model_flops.py``)."""

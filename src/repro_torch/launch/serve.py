@@ -1,14 +1,16 @@
 """Serving entry point of the port, on the GPU: batched LM decode
-(prefill + greedy decode against a KV cache), online GNN inference over
-the random-access graph query engine, and multi-hop graph traversals
-(k-hop / BFS visit / shortest path) over the same engine, optionally
-sharded and with the device-resident hot-set tier.
+(prefill + greedy decode against a KV cache), DIN CTR scoring, online
+GNN inference over the random-access graph query engine, and multi-hop
+graph traversals (k-hop / BFS visit / shortest path) over the same
+engine, optionally sharded and with the device-resident hot-set tier.
 
     python -m repro_torch.launch.serve --arch smollm-360m --reduced --tokens 32
     python -m repro_torch.launch.serve --arch smollm-360m --batch 8 \\
         --prompt-len 1024 --tokens 64
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --batch 8 \\
         --prompt-len 1024 --tokens 64
+    python -m repro_torch.launch.serve --arch din --reduced --device cpu --requests 4
+    python -m repro_torch.launch.serve --arch din --batch 512 --requests 64
     python -m repro_torch.launch.serve --arch gcn-cora --reduced --requests 8
     python -m repro_torch.launch.serve --arch gcn-cora --requests 8 \\
         --batch 1024 --scale 18 --edge-factor 16 --trace-sample 4
@@ -19,9 +21,8 @@ sharded and with the device-resident hot-set tier.
         --hotset-bytes 1048576
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions).  LM
-serving takes the dense and the MoE LMs.  The JAX package's DIN serving
-is not ported yet: asking for it exits with a message saying so.  GNN
-serving takes ``gcn-cora`` and ``pna``; the served batch carries none of
+serving takes the dense and the MoE LMs.  GNN serving takes
+``gcn-cora`` and ``pna``; the served batch carries none of
 MeshGraphNet's or DimeNet's fields, so those exit saying which.
 """
 
@@ -110,6 +111,66 @@ def serve_lm(cfg, *, batch: int, prompt_len: int, n_tokens: int,
              "(%.0f tok/s)", t_prefill * 1e3, batch, prompt_len,
              t_decode / max(1, n_tokens - 1) * 1e3, timings["tokens_per_s"])
     return tokens, timings
+
+
+def serve_din(cfg, *, batch: int, n_requests: int, device=None,
+              params: dict = None):
+    """DIN CTR scoring: ``n_requests`` batches of ``batch`` (user history,
+    candidate) pairs drawn from ``np.random.default_rng(0)`` in the JAX
+    package's order, each scored by one eager forward under
+    ``torch.inference_mode()``; logs the JAX package's ``serve_din`` line
+    over requests 2..n (the first is dropped, as the JAX package drops
+    its compile).
+
+    Keywords the JAX package lacks: ``device`` (None = the GPU, raises
+    without one) and ``params`` (None = random weights from a
+    ``torch.Generator`` seeded 0 on ``device``).  Returns ``(logits,
+    timings)``: every request's logits as f32 numpy ``[n_requests,
+    batch]`` (copied after the timed loop) and a dict of
+    ``latencies_s`` (every request, host clock from the batch on the
+    device to a synchronise after its forward), ``p50_ms`` and
+    ``p99_ms`` (requests 2..n).
+    """
+    from repro_torch.kernels.utils import resolve_device
+    from repro_torch.models.recsys import din as m_din
+
+    device = resolve_device(device)
+    if params is None:
+        params = m_din.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(0)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.int64).to(device)
+
+    lat, outs = [], []
+    with torch.inference_mode():
+        for _ in range(n_requests):
+            b = {
+                "hist_items": t(rng.integers(-1, cfg.n_items,
+                                             (batch, cfg.seq_len))),
+                "hist_cates": t(rng.integers(0, cfg.n_cates,
+                                             (batch, cfg.seq_len))),
+                "cand_item": t(rng.integers(0, cfg.n_items, batch)),
+                "cand_cate": t(rng.integers(0, cfg.n_cates, batch)),
+            }
+            sync()
+            t0 = time.perf_counter()
+            outs.append(m_din.forward(params, b, cfg))
+            sync()
+            lat.append(time.perf_counter() - t0)
+        logits = torch.stack(outs).float().cpu().numpy()
+    lat_ms = np.array(lat[1:]) * 1e3  # drop the first request
+    timings = {"latencies_s": lat,
+               "p50_ms": float(np.percentile(lat_ms, 50)),
+               "p99_ms": float(np.percentile(lat_ms, 99))}
+    log.info("DIN batch=%d: p50 %.2f ms p99 %.2f ms (%d reqs)",
+             batch, timings["p50_ms"], timings["p99_ms"], len(lat_ms))
+    return logits, timings
 
 
 def collect_service_metrics(service) -> "MetricsRegistry":
@@ -604,8 +665,10 @@ def main(argv=None) -> None:
         serve_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
                  n_tokens=args.tokens, device=args.device)
         return
-    if spec.family != "gnn":
-        raise SystemExit(f"{spec.family} serving is not ported yet")
+    if spec.family == "recsys":
+        serve_din(cfg, batch=args.batch, n_requests=args.requests,
+                  device=args.device)
+        return
     serve_gnn(args.arch, cfg, batch=args.batch, n_requests=args.requests,
               workdir=args.workdir, hotset_bytes=args.hotset_bytes,
               metrics_json=args.metrics_json,

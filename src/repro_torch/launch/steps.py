@@ -1,8 +1,11 @@
 """Model lookup by arch id, where the JAX package keeps its own.
 
-The JAX package's cell assembly (jit steps, shardings, input specs) waits
-for the port of the distribution layer; the serving and training paths
-need only the module table and the configs of the GNN shape catalog.
+Still owed here (ROADMAP Queue 1 item 7): the JAX package's cell
+assembly, ``build_cell`` and its cells (jit steps, shardings), with
+``configs/shapes.py``'s ``*_input_specs``, the spec functions of
+``distributed/sharding.py`` and the mesh / dry-run / HLO-analysis /
+variants launchers around them.  The serving and training paths need
+only the GNN module table and the configs of the GNN shape catalog.
 """
 
 from __future__ import annotations

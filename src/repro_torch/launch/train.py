@@ -1,5 +1,5 @@
 """Training entry point of the port, on the GPU: LM training from
-CompBin-packed token shards and GNN training from CompBin.
+CompBin-packed token shards, GNN training from CompBin, and DIN.
 
 Wires together ParaGrapher/CompBin/PG-Fuse data loading (token windows
 from a packed shard; sampled minibatches, the random-access query
@@ -7,7 +7,10 @@ engine, or the full graph streamed on simulated hosts), the LMs (dense
 and MoE: the MoE combine on the segment-sum kernel and its backward,
 attention on its plain backends, the flash-attention kernel having no
 backward) and the GNNs with the segment-sum kernel and its backward,
-AdamW, async checkpointing with restart and straggler monitoring.
+DIN (its item-table gather and that gather's backward plain PyTorch),
+AdamW, async checkpointing with restart, straggler monitoring, and
+optional error-feedback gradient compression over the data-parallel
+process group (``--compress-grads``: int8 on the wire).
 
     python -m repro_torch.launch.train --arch smollm-360m --reduced --device cpu --steps 20
     python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --batch 4 --seq 512 --steps 10
@@ -16,41 +19,41 @@ AdamW, async checkpointing with restart and straggler monitoring.
     python -m repro_torch.launch.train --arch pna --sampled --steps 10
     python -m repro_torch.launch.train --arch meshgraphnet --steps 10
     python -m repro_torch.launch.train --arch dimenet --steps 10
+    python -m repro_torch.launch.train --arch din --reduced --device cpu --steps 10
+    python -m repro_torch.launch.train --arch din --batch 65536 --steps 10 --compress-grads
 
 MeshGraphNet and DimeNet train in the default minibatch mode only: the
 ``--full-graph`` and ``--sampled`` batches carry none of their fields,
 and asking for them exits saying so.
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions); the
-default is the GPU, and without one it raises.  The JAX package's DIN
-training and its ``--compress-grads`` are not ported yet: asking for
-them exits with a message naming their ROADMAP item.
+default is the GPU, and without one it raises.  ``--compress-grads``
+runs on the default ``torch.distributed`` process group; where none
+exists ``train`` creates a world of one (NCCL on the card, gloo on the
+CPU) for the run, so the int8 all-reduces are real collectives either
+way.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.distributed.fault_tolerance import (ResilientTrainer,
                                                      StragglerMonitor)
 from repro_torch.kernels.utils import resolve_device
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               compression, ef_state_init)
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
 
 log = logging.getLogger("repro_torch.train")
-
-#: what asking for an unported training path says (ROADMAP Queue 1)
-NOT_PORTED = {
-    "recsys": "DIN training is not ported yet (ROADMAP Queue 1 item 6)",
-    "compress_grads": "--compress-grads is not ported yet (ROADMAP Queue 1 "
-                      "item 7, the distribution layer)",
-}
 
 
 class Batches:
@@ -280,6 +283,52 @@ def _gnn_full_graph_batches(arch_id: str, cfg, tmpdir: str, use_pgfuse: bool,
                    open_kwargs=open_kwargs, align=align)
 
 
+def _din_batches(cfg, batch: int, *, device=None) -> Batches:
+    """DIN click batches, drawn from ``np.random.default_rng(0)`` as the
+    JAX package draws them (history ids in [-1, n_items), -1 padding;
+    categories, candidates and 0/1 labels uniform): ids as int64 tensors
+    on ``device``, labels float32.  The labels are independent of the
+    ids, so over fresh batches the loss has nothing to learn."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(0)
+
+    def t(a, dtype=torch.int64):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    def gen():
+        while True:
+            yield {
+                "hist_items": t(rng.integers(-1, cfg.n_items,
+                                             (batch, cfg.seq_len))),
+                "hist_cates": t(rng.integers(0, cfg.n_cates,
+                                             (batch, cfg.seq_len))),
+                "cand_item": t(rng.integers(0, cfg.n_items, batch)),
+                "cand_cate": t(rng.integers(0, cfg.n_cates, batch)),
+                "labels": t(rng.integers(0, 2, batch).astype(np.float32),
+                            torch.float32),
+            }
+
+    return Batches(gen())
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """The default ``torch.distributed`` process group for
+    ``--compress-grads``: the one that exists, or else a world of one
+    created here (NCCL for a CUDA ``device``, gloo for the CPU, its
+    rendezvous an in-process ``HashStore``) and destroyed on exit."""
+    if dist.is_initialized():
+        yield dist.group.WORLD
+        return
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # step builder
 # ---------------------------------------------------------------------------
@@ -287,15 +336,17 @@ def _gnn_full_graph_batches(arch_id: str, cfg, tmpdir: str, use_pgfuse: bool,
 def _make_step(arch_id: str, cfg, opt_cfg: AdamWConfig, family: str,
                compress_grads: bool = False, *, device=None):
     """``(init_fn, step)``: ``init_fn(seed)`` draws the params on
-    ``device`` (None = the GPU; an LM's from a generator there, a GNN's
-    from a CPU generator); ``step(state, batch) -> (state, metrics)`` is
-    one eager forward, backward (autograd; on the card K2's backward
-    kernel) and AdamW update, returning new tensors."""
-    if family not in ("lm", "gnn"):
-        raise SystemExit(NOT_PORTED.get(family, f"{family} training is not "
-                                        f"ported yet"))
-    if compress_grads:
-        raise SystemExit(NOT_PORTED["compress_grads"])
+    ``device`` (None = the GPU; an LM's and DIN's from a generator there,
+    a GNN's from a CPU generator); ``step(state, batch) -> (state,
+    metrics)`` is one eager forward, backward (autograd; on the card K2's
+    backward kernel where the model sums segments) and AdamW update,
+    returning new tensors.
+
+    With ``compress_grads`` the gradients go through
+    :func:`repro_torch.optim.compression.ef_compress_psum` over the
+    default process group (which must exist: :func:`process_group`), the
+    loss is averaged over it, and the state carries the residual
+    ``ef``."""
     device = resolve_device(device)
     if family == "lm":
         from repro_torch.models import transformer as tf
@@ -306,7 +357,7 @@ def _make_step(arch_id: str, cfg, opt_cfg: AdamWConfig, family: str,
         def init_fn(seed: int = 0) -> dict:
             return tf.init_params(
                 cfg, torch.Generator(device=device).manual_seed(seed))
-    else:
+    elif family == "gnn":
         from repro_torch.launch.steps import _GNN_MODULES
 
         mod = _GNN_MODULES[arch_id]
@@ -317,16 +368,47 @@ def _make_step(arch_id: str, cfg, opt_cfg: AdamWConfig, family: str,
         def init_fn(seed: int = 0) -> dict:
             return mod.init_params(cfg, torch.Generator().manual_seed(seed),
                                    device=device)
+    else:
+        from repro_torch.models.recsys import din as m_din
 
-    def step(state, batch):
+        def loss_fn(p, b):
+            return m_din.loss_fn(p, b, cfg)
+
+        def init_fn(seed: int = 0) -> dict:
+            return m_din.init_params(
+                cfg, torch.Generator(device=device).manual_seed(seed))
+
+    def loss_and_grads(state, batch):
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
         loss = loss_fn(params, batch)
-        grads = tree_unflatten(params, torch.autograd.grad(
+        return loss.detach(), tree_unflatten(params, torch.autograd.grad(
             loss, tree_leaves(params)))
+
+    if compress_grads:
+        if not dist.is_initialized():
+            raise RuntimeError("--compress-grads needs the default process "
+                               "group: run the step inside process_group()")
+        axis_size = dist.get_world_size()
+
+        def step(state, batch):
+            loss, grads = loss_and_grads(state, batch)
+            grads, ef = compression.ef_compress_psum(
+                grads, state["ef"], axis_size=axis_size)
+            loss = loss.reshape(1)
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM)
+            new, opt, met = adamw_update(state["params"], grads,
+                                         state["opt"], opt_cfg)
+            return ({"params": new, "opt": opt, "ef": ef},
+                    {**met, "loss": loss[0] / axis_size})
+
+        return init_fn, step
+
+    def step(state, batch):
+        loss, grads = loss_and_grads(state, batch)
         new, opt, met = adamw_update(state["params"], grads, state["opt"],
                                      opt_cfg)
-        return {"params": new, "opt": opt}, {**met, "loss": loss.detach()}
+        return {"params": new, "opt": opt}, {**met, "loss": loss}
 
     return init_fn, step
 
@@ -340,7 +422,8 @@ def train(arch: str, *, steps: int = 50, reduced: bool = False,
     """The CLI's training run; returns ``{"losses", "state",
     "step_times_s", "batches"}`` (``batches`` closed).  ``batch`` and
     ``seq`` size an LM's token windows (the JAX package's defaults, 8 x
-    64); a GNN ignores them."""
+    64); ``batch`` is DIN's examples a step; a GNN ignores them.  With
+    ``compress_grads`` the run holds :func:`process_group`."""
     if full_graph and sampled:
         raise SystemExit("--full-graph and --sampled are mutually exclusive")
     spec = get_arch(arch)
@@ -348,23 +431,31 @@ def train(arch: str, *, steps: int = 50, reduced: bool = False,
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps,
                           master_f32=True)
     device = resolve_device(device)
-    init_fn, step_fn = _make_step(arch, cfg, opt_cfg, spec.family,
-                                  compress_grads, device=device)
-    os.makedirs(workdir, exist_ok=True)
-    if spec.family == "lm":
-        batches = _lm_batches(cfg, batch, seq, workdir, use_pgfuse,
-                              device=device)
-    elif full_graph:
-        batches = _gnn_full_graph_batches(arch, cfg, workdir, use_pgfuse,
-                                          hosts, device=device)
-    elif sampled:
-        batches = _gnn_sampled_batches(arch, cfg, workdir, use_pgfuse,
-                                       device=device)
-    else:
-        batches = _gnn_batches(arch, cfg, workdir, use_pgfuse, device=device)
-    try:
+    with contextlib.ExitStack() as stack:
+        if compress_grads:
+            stack.enter_context(process_group(device))
+        init_fn, step_fn = _make_step(arch, cfg, opt_cfg, spec.family,
+                                      compress_grads, device=device)
+        os.makedirs(workdir, exist_ok=True)
+        if spec.family == "lm":
+            batches = _lm_batches(cfg, batch, seq, workdir, use_pgfuse,
+                                  device=device)
+        elif spec.family == "recsys":
+            batches = _din_batches(cfg, batch, device=device)
+        elif full_graph:
+            batches = _gnn_full_graph_batches(arch, cfg, workdir, use_pgfuse,
+                                              hosts, device=device)
+        elif sampled:
+            batches = _gnn_sampled_batches(arch, cfg, workdir, use_pgfuse,
+                                           device=device)
+        else:
+            batches = _gnn_batches(arch, cfg, workdir, use_pgfuse,
+                                   device=device)
+        stack.callback(batches.close)
         params = init_fn(0)
         state = {"params": params, "opt": adamw_init(params, opt_cfg)}
+        if compress_grads:
+            state["ef"] = ef_state_init(params)
         ckpt_dir = ckpt_dir or os.path.join(workdir, f"ckpt_{arch}")
         trainer = ResilientTrainer(step_fn, state, ckpt_dir=ckpt_dir,
                                    ckpt_every=ckpt_every)
@@ -382,8 +473,6 @@ def train(arch: str, *, steps: int = 50, reduced: bool = False,
 
         final = trainer.run(batches, n_steps=steps, on_metrics=on_metrics,
                             inject_failure_at=inject_failure_at)
-    finally:
-        batches.close()
     if losses:
         log.info("done: first-10 mean loss %.4f -> last-10 mean loss %.4f",
                  float(np.mean(losses[:10])), float(np.mean(losses[-10:])))
@@ -397,7 +486,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8,
-                    help="LM archs: token windows per step")
+                    help="LM archs: token windows per step; DIN: examples "
+                         "per step")
     ap.add_argument("--seq", type=int, default=64,
                     help="LM archs: tokens per window (labels shifted by "
                          "one)")
@@ -422,7 +512,9 @@ def main(argv=None) -> None:
                     help="simulated processes for --full-graph streaming "
                          "(data/multihost.py)")
     ap.add_argument("--compress-grads", action="store_true",
-                    help="not ported yet: exits saying so")
+                    help="error-feedback int8 gradient all-reduce over the "
+                         "default process group (a world of one is "
+                         "created where none exists)")
     ap.add_argument("--inject-failure-at", type=int, default=None)
     ap.add_argument("--workdir", default="/tmp/repro_torch_train")
     args = ap.parse_args(argv)

@@ -195,7 +195,8 @@ def test_configs_and_params_mirror_the_reference():
     assert port_configs.ARCH_IDS == ["qwen2-moe-a2.7b", "dbrx-132b",
                                      "smollm-360m", "qwen2-1.5b",
                                      "stablelm-1.6b", "dimenet",
-                                     "meshgraphnet", "gcn-cora", "pna"]
+                                     "meshgraphnet", "gcn-cora", "pna",
+                                     "din"]
     for make in ("make_config", "make_reduced"):
         a, b = getattr(spec, make)(), getattr(ref_spec, make)()
         for f in dataclasses.fields(b):
@@ -209,11 +210,9 @@ def test_configs_and_params_mirror_the_reference():
         for k in r:
             assert tuple(p[k].shape) == r[k].shape and p[k].dtype == torch.float32
     assert set(spec.shapes) == set(ref_spec.shapes)
-    with pytest.raises(KeyError, match="not ported yet"):
-        port_configs.get_arch("din")
-    assert port_configs.NOT_PORTED == ("din",)
+    assert port_configs.get_arch("din").family == "recsys"
     ref_ids = __import__("repro.configs", fromlist=["x"]).ARCH_IDS
-    assert port_configs.ARCH_IDS == [a for a in ref_ids if a != "din"]
+    assert port_configs.ARCH_IDS == ref_ids
     for arch in ("qwen2-moe-a2.7b", "dbrx-132b"):
         assert port_configs.get_arch(arch).family == "lm"
     with pytest.raises(KeyError, match="unknown arch"):

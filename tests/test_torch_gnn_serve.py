@@ -193,7 +193,7 @@ def test_cli_serves_and_writes_metrics(tmp_path, caplog):
     for argv, msg in ((["--arch", "smollm-360m", "--traversal"], "gnn arch"),
                       (["--arch", "qwen2-moe-a2.7b", "--traversal"],
                        "gnn arch"),
-                      (["--arch", "din"], "not ported")):
+                      (["--arch", "din", "--traversal"], "gnn arch")):
         with pytest.raises(SystemExit, match=msg):
             port_serve.main(argv + ["--device", "cpu",
                                     "--workdir", str(tmp_path / "w")])

@@ -744,3 +744,85 @@ def test_moe_training_step_on_the_card(cuda, smoke, dispatch):
 
     out = smoke.first_step_parity(loss_fn, params, per_step, exact=exact)
     assert np.isfinite(out["loss"])
+
+
+def _din_small(n_items: int = 1000):
+    from repro_torch.configs import get_arch
+    import dataclasses
+    return dataclasses.replace(get_arch("din").make_reduced(),
+                               n_items=n_items)
+
+
+def test_din_forward_on_the_card_equals_the_cpu(cuda, smoke):
+    """The reduced DIN's logits on the card within chip_smoke's
+    ``DIN_TOL`` of the same params and batch on the CPU."""
+    from repro_torch.models.recsys import din
+    cfg = _din_small()
+    params = din.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {"hist_items": rng.integers(-1, cfg.n_items, (64, cfg.seq_len)),
+             "hist_cates": rng.integers(0, cfg.n_cates, (64, cfg.seq_len)),
+             "cand_item": rng.integers(0, cfg.n_items, 64),
+             "cand_cate": rng.integers(0, cfg.n_cates, 64)}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want = din.forward(params, batch, cfg)
+    got = din.forward({k: (v.to(cuda) if not isinstance(v, dict) else
+                           {kk: vv.to(cuda) for kk, vv in v.items()})
+                       for k, v in params.items()},
+                      {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    smoke.din_close(got, want, "DIN on the card")
+
+
+def test_din_ids_past_the_tables_do_not_assert_on_the_card(cuda):
+    """An item id at or above ``n_items`` (a category id at or above
+    ``n_cates``) reads the last row on the card as on the CPU, -1 reads
+    zeros; no device-side assert."""
+    from repro_torch.models.recsys import din
+    cfg = _din_small()
+    params = din.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    items = torch.tensor([0, -1, 999, 1000, 2 ** 40], device=cuda)
+    cates = torch.tensor([0, 3, 31, 32, 2 ** 40], device=cuda)
+    got = din.embed_items(params, items, cates)
+    torch.cuda.synchronize()
+    last = torch.cat([params["item_table"][-1], params["cate_table"][-1]])
+    for i in (2, 3, 4):
+        assert torch.equal(got[i], last)
+    assert not got[1].any()
+
+
+def test_din_packed_requests_decode_through_k1(cuda, smoke):
+    """``chip_smoke.din_packed_serve`` at b = 3 (a catalog of 2^17 + 1
+    items): one K1 launch a request, the decoded ids equal
+    ``decode_ids`` as int64, the logits within ``DIN_TOL`` of the plain
+    CPU path."""
+    from repro_torch.models.recsys import din
+    cfg = _din_small(n_items=2 ** 17 + 1)
+    params = din.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    out = smoke.din_packed_serve(cfg, params, cuda, batch=16, n_requests=3)
+    assert out["b"] == 3 and out["k1_launches"] == 3
+    assert out["ids_checked"] == 3 * 16 * (cfg.seq_len + 1)
+
+
+def test_compressed_step_on_an_nccl_world_of_one(cuda, smoke):
+    """One ``--compress-grads`` step of the reduced DIN on a world-size-1
+    NCCL group (int8 all-reduce on the card), every residual within half
+    the quantisation step (``chip_smoke.checked_ef``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import AdamWConfig, adamw_init, ef_state_init
+    cfg = _din_small()
+    calls = []
+    with tr.process_group(cuda) as group:
+        assert dist.get_backend(group) == "nccl"
+        init_fn, step = tr._make_step("din", cfg, AdamWConfig(), "recsys",
+                                      True, device=cuda)
+        state = {"params": init_fn(0)}
+        state["opt"] = adamw_init(state["params"], AdamWConfig())
+        state["ef"] = ef_state_init(state["params"])
+        batch = next(tr._din_batches(cfg, 32, device=cuda))
+        with smoke.checked_ef(calls):
+            state, met = step(state, batch)
+        torch.cuda.synchronize()
+    assert not dist.is_initialized()
+    assert len(calls) == 1 and np.isfinite(float(met["loss"]))

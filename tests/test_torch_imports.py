@@ -57,7 +57,8 @@ def test_every_slice_module_is_present():
                  "distributed.fault_tolerance", "data.multihost",
                  "launch.train", "graph.reorder", "launch.compile_graph",
                  "data.tokens", "configs.qwen2_moe_a2_7b",
-                 "configs.dbrx_132b"):
+                 "configs.dbrx_132b", "models.recsys", "models.recsys.din",
+                 "configs.din", "optim.compression"):
         assert f"repro_torch.{want}" in mods, want
     for kernel in ("compbin_decode", "segment_sum", "flash_attention"):
         assert (SRC / "repro_torch" / "csrc" / f"{kernel}.cu").is_file()
@@ -146,6 +147,20 @@ def test_device_none_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer_params_from_numpy(
             {"embed": np.zeros((4, 2)), "layers": {}}, lm)
+    from repro_torch.convert import din_params_from_numpy
+    from repro_torch.launch.serve import serve_din
+    din = get_arch("din").make_reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_din(din, batch=1, n_requests=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        din_params_from_numpy({"item_table": np.zeros((4, 2))})
+    for extra in ({}, {"compress_grads": True}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.train("din", reduced=True, steps=1,
+                        workdir=str(tmp_path / "din_train"), **extra)
+    from repro_torch.launch import serve as serve_mod
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_mod.main(["--arch", "din", "--reduced", "--requests", "2"])
 
 
 def test_cpu_must_be_asked_for_by_name():

@@ -98,6 +98,9 @@ def test_cli_serves_the_lm_family(tmp_path, caplog):
                              "--tokens", "3"])
         assert any("prefill" in r.message and "tok/s" in r.message
                    for r in caplog.records), arch
-    with pytest.raises(SystemExit, match="not ported"):
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="repro_torch.serve"):
         port_serve.main(["--arch", "din", "--reduced", "--device", "cpu",
-                         "--workdir", str(tmp_path)])
+                         "--requests", "3", "--workdir", str(tmp_path)])
+    assert any(r.message.startswith("DIN batch=4: p50")
+               for r in caplog.records)

@@ -186,11 +186,9 @@ def test_cli_sampled_and_minibatch_modes_run(tmp_path, workdir):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "smollm-360m", "--compress-grads"],
-     "--compress-grads is not ported yet"),
-    (["--arch", "gcn-cora", "--compress-grads"],
-     "--compress-grads is not ported yet"),
-    (["--arch", "din"], "not ported yet"),
+    (["--arch", "no-such-arch"], "unknown arch"),
+    (["--arch", "meshgraphnet", "--full-graph"], "edge_attr"),
+    (["--arch", "dimenet", "--sampled"], "pos"),
     (["--arch", "gcn-cora", "--full-graph", "--sampled"],
      "mutually exclusive"),
 ])
