@@ -44,7 +44,12 @@ score and train DIN at full width over a 10M-item catalog (``[din]``:
 ``serve_din``, the same requests CompBin-packed and decoded on the card
 by K1, a bulk batch, retrieval of one user against 262,144 candidates,
 10 AdamW steps with a restart and 3 with ``--compress-grads`` on a
-world-size-1 NCCL group; every logit held to the plain CPU path), and
+world-size-1 NCCL group; every logit held to the plain CPU path),
+dry-run ``build_cell``'s 40 cells and 3 variants on the card's mesh and
+run one step of each whose peak estimate fits the card (``[cells]``:
+outputs held to the abstract trace's, the small GNN cells' first step to
+the plain path, packed edges decoded by K1, a 32k-token prefill's
+sampled attention rows to float64), and
 compile the load file with the graph
 compiler and serve the hot-set trace from the compiled file -- checks
 every result against an independent plain computation, and prints what
@@ -60,8 +65,8 @@ is printed.  Without a CUDA device it exits with code 2 at once.
 The load/serve/LogCSR/hot-set/traversal/GNN/train/gnn2/compile phases
 are plain functions of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
 n_tokens)``, ``[moe]``, ``[lm_train]`` and ``[din]`` of ``device`` with
-a ``reduced`` switch, so the CPU tests run the same code at a small
-size.
+a ``reduced`` switch, ``[cells]`` of ``device`` and a cell list, so the
+CPU tests run the same code at a small size.
 """
 
 from __future__ import annotations
@@ -1994,7 +1999,7 @@ def cuda_launches(fn, prefix: str, attempts: int = 4) -> tuple | None:
 
 #: run by :func:`fresh_k2_launches` in a new Python process: argv[1]
 #: this file, argv[2] a JSON list of (label, ids .npy, N, D, backward),
-#: argv[3] a JSON list of ``MOE_K3_SHAPES`` kinds
+#: argv[3] a JSON list of ``K3_FRESH_SHAPES`` kinds
 _FRESH_K2_LAUNCHES = """
 import importlib.util, json, sys
 import numpy as np, torch
@@ -2013,7 +2018,7 @@ for label, path, n, d, backward in json.loads(sys.argv[2]):
     out[label] = cs.cuda_launches(fn, "k2_")
 gen = torch.Generator(device="cuda").manual_seed(0)
 for kind in json.loads(sys.argv[3]):
-    out[kind] = cs.cuda_launches(cs.flash_call(cs.MOE_K3_SHAPES[kind], gen),
+    out[kind] = cs.cuda_launches(cs.flash_call(cs.K3_FRESH_SHAPES[kind], gen),
                                  "k3_")
 print(json.dumps(out))
 """
@@ -2030,7 +2035,7 @@ def fresh_k2_grad_launches(cases: dict, d: int, workdir: str) -> dict:
 def fresh_k2_launches(cases: dict, workdir: str, k3_kinds=()) -> dict:
     """K2's CUDA launches per call (:func:`cuda_launches`) at each case
     ``label -> (ids, n, d, backward)`` (the forward, or with ``backward``
-    its gather), and K3's at each of ``k3_kinds`` (``MOE_K3_SHAPES``,
+    its gather), and K3's at each of ``k3_kinds`` (``K3_FRESH_SHAPES``,
     :func:`flash_call`), counted in a new Python process that loads the
     libraries this run built: late in this process the profiler lost
     kernel records (the same window in a fresh process counts every
@@ -2342,26 +2347,36 @@ def exact_close(got: torch.Tensor, exact: torch.Tensor, scale: float,
     return err
 
 
-def first_step_parity(loss_fn, params, per_step: tuple, exact=None) -> dict:
+def first_step_pair(loss_fn, params, per_step: tuple, plain_fn=None):
     """The loss and every gradient of ``loss_fn(params)`` on the kernel
-    path against the plain path (:func:`plain_segment_sum`) on the same
-    device: K2's launches on the kernel path equal ``per_step`` and none
-    on the plain path; the loss within ``TRAIN_LOSS_RTOL``; each gradient
-    within ``TRAIN_GRAD_TOL`` (:func:`train_close`) or, given ``exact``
-    (a callable returning the float64 plain path's gradients by
-    parameter), held to those by :func:`exact_close` at the f32 plain
-    path's :func:`relative_distance`."""
+    path and of ``plain_fn`` (default ``loss_fn``) on the plain path
+    (:func:`plain_segment_sum`) on the same device: K2's launches on the
+    kernel path equal ``per_step`` and none on the plain path; the loss
+    within ``TRAIN_LOSS_RTOL``.  Returns the record and both paths'
+    gradients."""
     c0 = _k2_counts()
     loss_k, grads_k = loss_and_grads(loss_fn, params)
     c1 = _k2_counts()
     with plain_segment_sum():
-        loss_p, grads_p = loss_and_grads(loss_fn, params)
+        loss_p, grads_p = loss_and_grads(plain_fn or loss_fn, params)
     assert _k2_counts() == c1 and (c1[0] - c0[0], c1[1] - c0[1]) == \
         tuple(per_step), (c0, c1, _k2_counts(), per_step)
     assert abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p), \
         f"first-step loss {loss_k} != plain path's {loss_p}"
     out = {"loss": loss_k, "plain_loss": loss_p,
            "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p)}
+    return out, grads_k, grads_p
+
+
+def first_step_parity(loss_fn, params, per_step: tuple, exact=None,
+                      plain_fn=None) -> dict:
+    """:func:`first_step_pair`, then each gradient of the kernel path
+    within ``TRAIN_GRAD_TOL`` (:func:`train_close`) of the plain path's
+    or, given ``exact`` (a callable returning the float64 plain path's
+    gradients by parameter), held to those by :func:`exact_close` at the
+    f32 plain path's :func:`relative_distance`."""
+    out, grads_k, grads_p = first_step_pair(loss_fn, params, per_step,
+                                            plain_fn)
     if exact is None:
         out["grad_max_abs_err"] = {
             k: train_close(grads_k[k], grads_p[k], f"first-step grad {k}")
@@ -3404,10 +3419,16 @@ def phase_moe(device, *, batch: int = 8, prompt_len: int = 1024,
 #: activations small (the plain attention keeps its score tiles for the
 #: backward); qwen2-moe's 1.83 B parameters at 2 layers set its peak:
 #: AdamW with f32 masters holds 14 bytes a parameter (25.6 GB), and two
-#: states live during the functional update; its restart checkpoints
-#: twice
+#: states live during the functional update.  The restarts write 3 and 2
+#: checkpoints (15.2 and 51.3 GB): they go to ``LM_CKPT_ROOT``
 LM_TRAIN = (("smollm-360m", None, 8, 512, 4, 5),
             ("qwen2-moe-a2.7b", 2, 4, 512, 5, 6))
+#: where ``[lm_train]``'s restarts checkpoint on the card's machine: a
+#: RAM file system.  The machine ends a command that writes more than
+#: 45 GiB to its disk, deleted files included, and the two LMs'
+#: checkpoints alone are 66.5 GB.  Each restart's checkpoint is removed
+#: once the trainer has resumed from it, so the RAM holds one at a time
+LM_CKPT_ROOT = "/dev/shm"
 #: the first step's parity run: batch x sequence
 LM_PARITY = (2, 128)
 #: AdamW's warmup steps in ``[lm_train]`` (lr 1e-3 after them, cosine to
@@ -3427,6 +3448,12 @@ def write_zipf_shard(path: str, vocab: int, n: int = 200_000,
 
     rng = np.random.default_rng(seed)
     write_token_shard(path, (rng.zipf(1.3, n) - 1) % vocab, vocab)
+
+
+def dir_bytes(path: str) -> int:
+    """The bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
 
 
 def state_fingerprint(tree, chunk: int = 1 << 26) -> dict:
@@ -3457,7 +3484,8 @@ def state_fingerprint(tree, chunk: int = 1 << 26) -> dict:
 
 def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
                  seq: int, ckpt_every: int, fail_at: int, steps: int = 10,
-                 reduced: bool = False, seed: int = 0) -> dict:
+                 reduced: bool = False, seed: int = 0,
+                 ckpt_root: str | None = None) -> dict:
     """One LM trained through the training CLI's pieces
     (``launch/train.py``: ``_lm_batches`` over a token shard through
     PG-Fuse, decoded on the host; ``_make_step``: the training route's
@@ -3471,10 +3499,12 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
        first three's); one more step under the profiler;
     2. the restart: the same steps through ``ResilientTrainer`` with a
        failure injected at ``fail_at`` and checkpoints every
-       ``ckpt_every`` steps (one kept), the batches replayed from the
-       restored step (the trainer checkpoints no data position), held to
-       step 1's run by :func:`check_restart` (the saved and resumed
-       states by :func:`state_fingerprint`);
+       ``ckpt_every`` steps (one kept) under ``ckpt_root`` (default: the
+       model's work directory), the batches replayed from the restored
+       step (the trainer checkpoints no data position), held to step 1's
+       run by :func:`check_restart` (the saved and resumed states by
+       :func:`state_fingerprint`); the checkpoint resumed from is removed
+       once the next step is done, and the bytes written are recorded;
     3. the first step in f32 at ``LM_PARITY`` on the kernel path against
        the plain path (:func:`first_step_parity`; the MoE's gradients
        held to the plain path in float64 throughout, its combine
@@ -3563,9 +3593,9 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
     # fingerprints (:func:`state_fingerprint`), not kept
     t_restart = time.perf_counter()
     resume = (fail_at // ckpt_every) * ckpt_every
-    ckpt_dir = os.path.join(wd, "ckpt")
+    ckpt_dir = os.path.join(ckpt_root or wd, f"ckpt_{arch}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    inputs, seen = {}, []
+    inputs, seen, ckpt_bytes = {}, [], []
 
     def recording(st, b):
         n = recording.calls
@@ -3573,6 +3603,13 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
         if n in (resume, fail_at):
             inputs[n] = state_fingerprint(st)
         return step(st, b)
+
+    def on_metrics(s, m):
+        seen.append((s, float(m["loss"])))
+        if len(seen) == fail_at + 1:        # the first step after the restore
+            done = os.path.join(ckpt_dir, f"step_{resume:08d}")
+            ckpt_bytes.append(dir_bytes(done))
+            shutil.rmtree(done)
 
     recording.calls = 0
     replay = batches[:fail_at + 1] + batches[resume:steps]
@@ -3583,12 +3620,15 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
     trainer = ResilientTrainer(recording, first, ckpt_dir=ckpt_dir,
                                ckpt_every=ckpt_every, keep_last=1)
     del first
-    restored = trainer.run(
-        iter(replay), n_steps=steps, inject_failure_at=fail_at,
-        on_metrics=lambda s, m: seen.append((s, float(m["loss"]))))
+    restored = trainer.run(iter(replay), n_steps=steps,
+                           inject_failure_at=fail_at, on_metrics=on_metrics)
+    ckpt_bytes.append(dir_bytes(ckpt_dir))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     assert [s for s, _ in seen] == list(range(1, fail_at + 1)) + list(
         range(resume + 1, steps + 1)), seen
+    # the trainer saves after every ckpt_every-th step and the last one
+    saves = sum(s % ckpt_every == 0 or s == steps for s, _ in seen)
+    assert min(ckpt_bytes) > 0, ckpt_bytes
     assert tuple(b - a for a, b in zip(c0, _k2_counts())) == (
         len(seen) * per_step[0], len(seen) * per_step[1])
     ran += len(seen)
@@ -3598,6 +3638,10 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
     clean = {"params": tree_map(lambda t: t.to(device), clean["params"])}
     out["restart"] = {"fail_at": fail_at, "ckpt_every": ckpt_every,
                       "steps_replayed": fail_at - resume,
+                      "ckpt_root": ckpt_root or wd, "checkpoints": saves,
+                      "checkpoint_bytes": ckpt_bytes[0],
+                      # the manifests differ by their step numbers only
+                      "bytes_written": saves * ckpt_bytes[0],
                       **check_restart(inputs[fail_at], inputs[resume],
                                       [x for _, x in seen[fail_at:]],
                                       losses[resume:], restored, clean,
@@ -3608,6 +3652,18 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
     if on_gpu:
         torch.cuda.empty_cache()
     out["restart"]["wall_s"] = time.perf_counter() - t_restart
+    return _lm_parity(out, arch, cfg, init_fn, per_step, device, seed, ran,
+                      t_start)
+
+
+def _lm_parity(out: dict, arch: str, cfg, init_fn, per_step, device,
+               seed: int, ran: int, t_start: float) -> dict:
+    """:func:`lm_train_one`'s last part: the first step, f32, the kernel
+    path against the plain path (and float64 for an MoE); ``ran`` the
+    steps run so far, for the launch totals."""
+    from repro_torch.models import transformer as tf
+
+    on_gpu = torch.device(device).type == "cuda"
     t_parity = time.perf_counter()
 
     # 3. the first step, f32, kernel path vs plain path (and float64)
@@ -3658,17 +3714,19 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
 
 
 def phase_lm_train(device, workdir: str, *, models=LM_TRAIN, steps: int = 10,
-                   reduced: bool = False, seed: int = 0) -> dict:
+                   reduced: bool = False, seed: int = 0,
+                   ckpt_root: str | None = None) -> dict:
     """``[lm_train]``: each of ``models`` (``LM_TRAIN``: smollm-360m at
     full width and depth, qwen2-moe-a2.7b at full width on 2 layers, its
-    MoE combine on K2 at D 2048) trained by :func:`lm_train_one`, freed
-    before the next."""
+    MoE combine on K2 at D 2048) trained by :func:`lm_train_one`, its
+    restart checkpointing under ``ckpt_root``, freed before the next."""
     out = {}
     for arch, layers, batch, seq, ckpt_every, fail_at in models:
         out[arch] = lm_train_one(arch, device, workdir, layers=layers,
                                  batch=batch, seq=seq, ckpt_every=ckpt_every,
                                  fail_at=fail_at, steps=steps,
-                                 reduced=reduced, seed=seed)
+                                 reduced=reduced, seed=seed,
+                                 ckpt_root=ckpt_root)
         gc.collect()
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
@@ -3781,7 +3839,10 @@ def log_lm_train(lmt: dict) -> None:
             f"{rs['loss_rel_err']:.3g} (<= {TRAIN_LOSS_RTOL}); final params "
             f"off the uninjected run's by at most "
             f"{max(d['share'] for d in rs['drift'].values()):.3g} of the "
-            f"distance moved (<= {RESTART_PARAM_SHARE}); {rs['wall_s']:.1f} s")
+            f"distance moved (<= {RESTART_PARAM_SHARE}); {rs['checkpoints']} "
+            f"checkpoints of {rs['checkpoint_bytes']} B written under "
+            f"{rs['ckpt_root']} ({rs['bytes_written']} B); "
+            f"{rs['wall_s']:.1f} s")
         if "grad_max_abs_err_vs_f64" in par:
             dist = par["plain_relative_distance"]
             grads = (f"grads held to the float64 plain path (plain f32 path's "
@@ -3836,7 +3897,9 @@ def moe_slice(device, workdir: str) -> dict:
     torch.cuda.empty_cache()
     segment_sum.launches = segment_sum.grad_launches = 0
     flash_attention.launches = 0
-    lmt = phase_lm_train(device, workdir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_",
+                                     dir=LM_CKPT_ROOT) as ckpt_root:
+        lmt = phase_lm_train(device, workdir, ckpt_root=ckpt_root)
     lmt_k2, lmt_k2b = segment_sum.launches, segment_sum.grad_launches
     assert (lmt_k2, lmt_k2b) == (lmt["k2_launches"],
                                  lmt["k2_grad_launches"]), \
@@ -4642,6 +4705,869 @@ def din_table_grad(ids: torch.Tensor, n: int, d: int, flush,
 
 
 # ---------------------------------------------------------------------------
+# [cells]: build_cell's cells, dry-run on the card mesh, then run on the
+# card where the estimate fits
+# ---------------------------------------------------------------------------
+
+#: share of the card's free memory (``torch.cuda.mem_get_info``) a cell's
+#: peak estimate may take for the cell to run
+CELLS_MEM_SHARE = 0.9
+#: variant cells dry-run and run beside the 40 baseline cells
+CELL_VARIANTS = (("gcn-cora", "full_graph_sm", "edges_compbin"),
+                 ("gcn-cora", "minibatch_lg", "edges_compbin"),
+                 ("gcn-cora", "ogb_products", "gcn_transform_first"))
+#: shapes whose baseline GNN cells' first step is held to the plain path
+#: (the ``edges_compbin`` cells' first step is held on every shape)
+CELL_PARITY_SHAPES = ("full_graph_sm", "molecule")
+#: the full-width PNA, MeshGraphNet and DimeNet cells' first-step
+#: gradients against the float64 plain path: within this share of each
+#: parameter's max|g|.  On these cells the f32 paths' own distance from
+#: float64 moves 2-8x between two runs of the same path (the atomics'
+#: order): the plain path 2.4e-5 / 2.0e-4 on MeshGraphNet's
+#: full_graph_sm, up to 4.5e-4 on its molecule; the kernel path 1.1e-5
+#: to 4.5e-4 (NVIDIA H100 80GB HBM3, 700.00 W), so a bound scaled by one
+#: run of the plain path (``exact_close``) fails by chance.  A dropped
+#: edge or a wrong id moves a gradient by 1e-2 or more.
+CELL_GRAD_SHARE = 2e-3
+#: query rows of each K3 call of a run prefill held to float64
+CELL_SHADOW_ROWS = 4
+#: timed steps of a run cell (median), after one warm-up step
+CELL_STEP_REPS = 3
+#: the dry run's expected statuses over the whole catalog
+CELL_STATUS = {"OK": 35, "SKIP": 5, "FAIL": 0}
+
+
+def all_cell_jobs() -> list:
+    """The 40 baseline cells and :data:`CELL_VARIANTS`, as
+    ``(arch, shape, variant)``."""
+    from repro_torch.configs import all_cells
+    return [(a, s, "baseline") for a, s in all_cells()] + list(CELL_VARIANTS)
+
+
+def lm_lookup_flops(cfg, shape) -> float:
+    """The part of ``lm_model_flops`` no program does as arithmetic: the
+    formula prices every parameter at 2 FLOPs a token a pass, the
+    embedding table too, which a program reads by lookup (untied: 6 V d
+    a token to train, 2 V d to serve); and a prefill prices the LM head
+    on every position, where the port computes the last one's logits
+    only (2 V d for each of the other S - 1)."""
+    v_d = cfg.vocab * cfg.d_model
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
+    embed = 0.0 if cfg.tie_embeddings else v_d * tokens * (
+        6.0 if shape.kind == "train" else 2.0)
+    head = 2.0 * v_d * shape.global_batch * (shape.seq_len - 1) \
+        if shape.kind == "prefill" else 0.0
+    return embed + head
+
+
+def check_dry_run(recs: list, expect: dict | None = CELL_STATUS,
+                  jobs: list | None = None) -> dict:
+    """The dry run's own checks: no cell ``FAIL`` (and, given ``expect``,
+    the status counts of the 40 baseline cells); on every LM cell the
+    model FLOPs the program must do as arithmetic (``model_flops`` less
+    :func:`lm_lookup_flops`) are at most the counted FLOPs -- a program
+    cannot do less work than its model needs.  ``useful_ratio``
+    (``model_flops`` / counted) is recorded as the roofline gives it,
+    for the GNN cells too (their segment sums' adds are counted as
+    elementwise work).  ``jobs``: the cells as :func:`phase_cells` got
+    them, whose ``cfg_overrides`` size the LM configs."""
+    from repro_torch.configs.shapes import LM_SHAPES
+
+    fails = [f"{r['arch']}|{r['shape']}|{r.get('variant')}: "
+             f"{r.get('error', '')[-300:]}" for r in recs
+             if r["status"] == "FAIL"]
+    assert not fails, "dry run FAIL: " + "; ".join(fails)
+    base = [r for r in recs if r.get("variant", "baseline") == "baseline"]
+    counts = {k: sum(r["status"] == k for r in base) for k in CELL_STATUS}
+    if expect is not None:
+        assert counts == expect, f"dry-run statuses {counts} != {expect}"
+    for i, r in enumerate(recs):
+        if r["status"] != "OK" or r["family"] != "lm":
+            continue
+        job = jobs[i] if jobs else ()
+        over = job[3].get("cfg_overrides", {}) if len(job) > 3 else {}
+        cfg = dataclasses.replace(get_arch(r["arch"]).make_config(), **over)
+        arith = r["model_flops"] - lm_lookup_flops(cfg, LM_SHAPES[r["shape"]])
+        r["arith_ratio"] = arith / r["cost"]["flops"]
+        assert r["arith_ratio"] <= 1.0, \
+            (f"{r['arch']}|{r['shape']}: the model needs {arith:.4g} FLOPs "
+             f"of arithmetic, the trace counted {r['cost']['flops']:.4g}")
+    return counts
+
+
+def cell_params(cell, device, seed: int = 0) -> dict:
+    """The cell's model weights drawn by its ``init_params`` from a
+    generator on ``device``."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import din
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    family = get_arch(cell.arch_id).family
+    if family == "lm":
+        return tf.init_params(cell.cfg, gen, device=device)
+    if family == "gnn":
+        return steps._GNN_MODULES[cell.arch_id].init_params(
+            cell.cfg, gen, device=device)
+    return din.init_params(cell.cfg, gen, device=device)
+
+
+def pack_ids(ids: torch.Tensor, b: int) -> torch.Tensor:
+    """int64 ids as little-endian ``b``-byte CompBin words, -1 as the
+    all-ones pad id: uint8[n * b]."""
+    u = torch.where(ids < 0, (1 << (8 * b)) - 1, ids)
+    return torch.stack([(u >> (8 * i)) & 255 for i in range(b)],
+                       dim=1).to(torch.uint8).reshape(-1)
+
+
+def _ids(n_real: int, n_slots: int, high: int, gen, device) -> torch.Tensor:
+    """``n_slots`` int64 ids: the first ``n_real`` uniform in [0, high),
+    -1 in the padding."""
+    out = torch.full((n_slots,), -1, dtype=torch.int64, device=device)
+    out[:n_real] = torch.randint(0, high, (n_real,), generator=gen,
+                                 device=device)
+    return out
+
+
+def cell_batch(cell, device, seed: int = 0, lm_shape=None) -> tuple:
+    """Inputs for ``cell.args[1]`` on ``device``: ``(batch, edge_ids)``.
+    GNN (from ``seed``): edge ids uniform over the shape's real nodes (an
+    Erdos-Renyi draw: the catalog fixes the sizes, not a degree law), -1
+    in the padded slots (CompBin-packed under ``edges_compbin``; the
+    int64 ids come back as ``edge_ids``), zero features on padded nodes,
+    labels in range, masks on real nodes only, DimeNet's triplets over
+    the real edges and its sorted graph ids.  DIN: the JAX package's
+    draws, as the port's trainer and server make them
+    (``launch/train.py::_din_batches``: history ids in [-1, n_items),
+    categories, candidates and 0/1 labels uniform; a retrieval cell's one
+    history and candidates by the same laws from ``seed``).  LM: tokens
+    uniform in the vocabulary from ``seed`` (``lm_shape`` a smaller
+    [B, S] for a rehearsal)."""
+    from repro_torch.configs.shapes import GNN_SHAPES
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    specs, family = cell.args[1], get_arch(cell.arch_id).family
+    if family == "lm":
+        shape = lm_shape or tuple(specs["tokens"].shape)
+        return {"tokens": torch.randint(0, cell.cfg.vocab, shape,
+                                        generator=gen, device=device)}, None
+    if family == "recsys":
+        from repro_torch.launch.train import _din_batches
+        cfg = cell.cfg
+        if "cand_items" in specs:
+            rng = np.random.default_rng(seed)
+            n = specs["cand_items"].shape[0]
+            draw = {"hist_items": rng.integers(-1, cfg.n_items, cfg.seq_len),
+                    "hist_cates": rng.integers(0, cfg.n_cates, cfg.seq_len),
+                    "cand_items": rng.integers(0, cfg.n_items, n),
+                    "cand_cates": rng.integers(0, cfg.n_cates, n)}
+            return {k: torch.as_tensor(v).to(device)
+                    for k, v in draw.items()}, None
+        batch = next(iter(_din_batches(cfg, specs["hist_items"].shape[0],
+                                       device=device)))
+        return {k: batch[k] for k in specs}, None
+    shp = GNN_SHAPES[cell.shape_id]
+    n, e = shp.n_nodes, shp.n_edges
+    packed = specs["edge_src"].dtype == torch.uint8
+    b = 0
+    if packed:
+        from repro_torch.core.compbin import bytes_per_vertex
+        b = bytes_per_vertex(n)
+    batch, edge_ids = {}, {}
+    for key, spec in specs.items():
+        size = tuple(spec.shape)
+        if key in ("edge_src", "edge_dst"):
+            slots = size[0] // b if packed else size[0]
+            ids = _ids(e, slots, n, gen, device)
+            edge_ids[key] = ids
+            batch[key] = pack_ids(ids, b) if packed else ids.to(spec.dtype)
+        elif key.startswith("triplet_"):
+            batch[key] = _ids(min(size[0], int(shp.triplet_factor * e)),
+                              size[0], e, gen, device).to(spec.dtype)
+        elif key == "graph_id":
+            g = torch.full(size, -1, dtype=torch.int64, device=device)
+            g[:n] = torch.sort(torch.randint(0, shp.n_graphs, (n,),
+                                             generator=gen,
+                                             device=device)).values
+            batch[key] = g.to(spec.dtype)
+        elif key == "labels":
+            batch[key] = torch.randint(0, cell.cfg.n_classes, size,
+                                       generator=gen, device=device
+                                       ).to(spec.dtype)
+        elif spec.dtype == torch.bool:
+            m = torch.rand(size, generator=gen, device=device) < 0.5
+            m[n:] = False
+            batch[key] = m
+        else:
+            x = torch.randn(size, generator=gen, device=device)
+            if key in ("x", "pos"):
+                x[n:] = 0.0
+            batch[key] = x
+    return batch, (edge_ids if packed else None)
+
+
+def cell_k2_per_step(cell) -> tuple[int, int]:
+    """K2's (forward, backward) launches in one step of a GNN cell
+    (:func:`k2_per_step`); GCN under ``transform_first`` with a layer-0
+    weight narrower than its input also takes layer 0's backward (its
+    messages then carry a parameter)."""
+    fwd, bwd = k2_per_step(cell.arch_id, cell.cfg)
+    cfg = cell.cfg
+    if cell.arch_id == "gcn-cora" and cfg.transform_first and \
+            cfg.d_hidden < cfg.d_in:
+        bwd += 1
+    return fwd, bwd
+
+
+def cell_expected(cell, on_gpu: bool = True) -> dict:
+    """Each kernel's launches in one step of ``cell`` on the card: K1
+    two (the packed edge ids) under ``edges_compbin``; K2 and its
+    backward by :func:`cell_k2_per_step` in a GNN cell; K3 one a layer
+    in a prefill; none in a DIN cell.  Off the card, none."""
+    out = {"k1": 0, "k2": 0, "k2_grad": 0, "k3": 0}
+    family = get_arch(cell.arch_id).family
+    if not on_gpu:
+        return out
+    if family == "gnn":
+        out["k2"], out["k2_grad"] = cell_k2_per_step(cell)
+        if cell.args[1]["edge_src"].dtype == torch.uint8:
+            out["k1"] = 2
+    elif cell.kind in ("prefill", "decode"):
+        out["k3"] = cell.cfg.n_layers
+    return out
+
+
+def kernel_counts() -> dict:
+    return {"k1": compbin_decode.launches, "k2": segment_sum.launches,
+            "k2_grad": segment_sum.grad_launches,
+            "k3": flash_attention.launches}
+
+
+def _count_delta(before: dict) -> dict:
+    now = kernel_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def check_cell_outputs(out, want: list, what: str) -> None:
+    """Every output's shape and dtype equal the abstract trace's
+    (``want``, as ``dryrun.leaf_shapes`` lists them): the dry run's own
+    contract."""
+    from repro_torch.launch.dryrun import leaf_shapes
+    got = leaf_shapes(out)
+    assert got == want, \
+        f"{what}: outputs {got} != the abstract trace's {want}"
+
+
+def _cell_kernel_class(name: str) -> str:
+    if "compbin" in name or "k1_" in name:
+        return "k1"
+    return _train_kernel_class(name)
+
+
+def profile_cell_step(work, device) -> dict:
+    """``work()`` once under ``torch.profiler`` (shapes recorded): device
+    ms by kernel class (K1, K2, K2's backward, K3, GEMMs, copies,
+    other), the host-clock wall, the top kernels, and the collectives
+    :func:`collectives_from_profile` reads (a world of one: none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.hlo_analysis import collectives_from_profile
+
+    on_gpu = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu
+                                     else [])
+    _cuda_sync(device)
+    with profile(activities=acts, record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        work()
+        _cuda_sync(device)
+        wall = time.perf_counter() - t0
+    classes = ("k1", "k2", "k2_grad", "k3", "gemm", "copy", "other")
+    sums, kernels = dict.fromkeys(classes, 0.0), []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us:
+            sums[_cell_kernel_class(ev.key)] += us / 1e3
+            kernels.append((us / 1e3, ev.count, ev.key[:60]))
+    coll = collectives_from_profile(prof, 1)
+    busy = sum(sums.values())
+    return {"wall_ms": wall * 1e3, "device_ms": sums if busy else None,
+            "idle_share": 1 - busy / (wall * 1e3) if busy else None,
+            "top_kernels": sorted(kernels, reverse=True)[:6],
+            "collectives": {"ops": coll.ops, "wire_bytes": coll.wire_bytes}}
+
+
+def shadow_attend(checks: list, n_rows: int = CELL_SHADOW_ROWS,
+                  seed: int = 0):
+    """A serving attention for a cell's ``attend=``: the port's
+    ``attention``, with ``n_rows`` sampled query rows of each call's
+    output held to :func:`attention_f64` on those rows (a full float64
+    check of a 32k prefill would need terabytes): within ``K3_TOL`` of
+    the output's dtype, atol scaled by max(1, max|v|); per call
+    ``checks`` gets the worst error over its atol."""
+    from repro_torch.models import transformer as tf
+
+    rng = np.random.default_rng(seed)
+
+    def checked(q, k, v, cfg, *, causal, q_offset=0):
+        out = tf.attention(q, k, v, cfg, causal=causal, q_offset=q_offset)
+        b, s = q.shape[:2]
+        tol = K3_TOL.get(q.dtype, K3_TOL[torch.float32])
+        worst = 0.0
+        for _ in range(n_rows):
+            bi, si = int(rng.integers(b)), int(rng.integers(s))
+            want = attention_f64(q[bi:bi + 1, si:si + 1], k[bi:bi + 1],
+                                 v[bi:bi + 1], q_offset + si)
+            got = out[bi:bi + 1, si:si + 1].double()
+            live = v[bi:bi + 1, :q_offset + si + 1]
+            atol = tol * max(1.0, float(live.abs().max()))
+            err = float((got - want).abs().max())
+            assert err <= atol + tol * float(want.abs().max()), \
+                (f"attention row ({bi}, {si}) of a [{b}, {s}] call: max "
+                 f"abs err {err} beyond rtol {tol}, atol {atol}")
+            worst = max(worst, err / atol)
+        checks.append(worst)
+        return out
+
+    return checked
+
+
+def _cell_loss(cell, packed: bool = True):
+    """The loss a GNN cell's step differentiates, as a function of
+    (params, batch); with ``packed`` False, the same loss on a batch
+    whose edge ids are int64 (no decode)."""
+    import functools
+
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.core.compbin import bytes_per_vertex
+    from repro_torch.launch import steps
+    shp = GNN_SHAPES[cell.shape_id]
+    cb_b = bytes_per_vertex(shp.n_nodes) \
+        if packed and cell.args[1]["edge_src"].dtype == torch.uint8 else 0
+    return functools.partial(steps._gnn_loss,
+                             mod=steps._GNN_MODULES[cell.arch_id],
+                             cfg=cell.cfg, static={"n_graphs": shp.n_graphs},
+                             cb_b=cb_b)
+
+
+def cell_parity(cell, params, batch, device, edge_ids=None) -> dict:
+    """A GNN cell's first step on the card held to the plain path: for
+    GCN by :func:`first_step_parity` (K2's launches as reckoned, the loss
+    within ``TRAIN_LOSS_RTOL``, the gradients within ``TRAIN_GRAD_TOL``,
+    as ``[train]`` holds them), for PNA, MeshGraphNet and DimeNet by
+    :func:`first_step_pair` with both paths' gradients within
+    :data:`CELL_GRAD_SHARE` of the float64 plain path's; and its loss to
+    the plain CPU path on the same weights and inputs.  A packed cell's
+    plain path is fed ``edge_ids``, the int64 ids packed (no decode)."""
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.launch import steps
+
+    loss = _cell_loss(cell)
+    plain_fn = None
+    if edge_ids is not None:
+        unpacked, plain = dict(batch, **edge_ids), _cell_loss(cell, False)
+
+        def plain_fn(p):
+            return plain(p, unpacked)
+    on_gpu = torch.device(device).type == "cuda"
+    per_step = cell_k2_per_step(cell) if on_gpu else (0, 0)
+    if cell.arch_id == "gcn-cora":
+        par = first_step_parity(lambda p: loss(p, batch), params, per_step,
+                                plain_fn=plain_fn)
+    else:
+        par, grads_k, grads_p = first_step_pair(lambda p: loss(p, batch),
+                                                params, per_step, plain_fn)
+        full = dict(batch, n_graphs=GNN_SHAPES[cell.shape_id].n_graphs)
+        grads_x = exact_plain_grads(steps._GNN_MODULES[cell.arch_id],
+                                    cell.cfg, full, params)()
+        got = par["kernel_relative_distance"] = relative_distance(grads_k,
+                                                                  grads_x)
+        scale = par["plain_relative_distance"] = relative_distance(grads_p,
+                                                                   grads_x)
+        assert got <= CELL_GRAD_SHARE and scale <= CELL_GRAD_SHARE, \
+            (f"first-step grads {got} (kernel path) / {scale} (plain) of "
+             f"max|g| from float64, beyond {CELL_GRAD_SHARE}")
+    with torch.no_grad():
+        cpu_loss = float(loss(to_cpu(params), to_cpu(batch)))
+    par["cpu_loss"] = cpu_loss
+    par["cpu_loss_rel_err"] = abs(par["loss"] - cpu_loss) / abs(cpu_loss)
+    assert par["cpu_loss_rel_err"] <= TRAIN_LOSS_RTOL, \
+        f"card loss {par['loss']} != the plain CPU path's {cpu_loss}"
+    return par
+
+
+def check_packed_ids(batch: dict, edge_ids: dict, b: int) -> int:
+    """The edge ids a packed cell's step decodes
+    (``steps.decode_packed_edges``: K1, the pad id mapped to -1) equal
+    the ids packed, as int64; returns how many were checked."""
+    from repro_torch.launch.steps import decode_packed_edges
+
+    got = decode_packed_edges(batch, b)
+    for key, want in edge_ids.items():
+        assert torch.equal(got[key].long(), want), \
+            f"{key}: ids K1 decoded differ from decode_ids"
+    return sum(want.numel() for want in edge_ids.values())
+
+
+def run_cell_on_device(cell, rec: dict, device, *, reps: int = CELL_STEP_REPS,
+                       parity: bool = False, lm_shape=None,
+                       seed: int = 0) -> dict:
+    """One cell run on ``device`` at its catalog shapes (``lm_shape``
+    cuts an LM batch for a rehearsal): weights from its ``init_params``,
+    inputs from :func:`cell_batch`.
+
+    Train cells: (a packed cell's decoded ids by
+    :func:`check_packed_ids`, then with ``parity`` :func:`cell_parity`
+    first), a warm-up step whose outputs match the abstract trace's,
+    ``reps`` timed steps (median), one profiled step.  Serving cells: a
+    warm-up call with its outputs checked (a prefill's attention rows
+    held to float64 through :func:`shadow_attend`), then one timed call under the profiler (a
+    32k-token prefill takes seconds) or ``reps`` timed calls and a
+    profiled one.  Every call's launches must equal
+    :func:`cell_expected`; every loss and output is finite.  Returns the
+    step ms, ``max_memory_allocated`` over the cell's own allocations
+    beside the estimate, the TFLOP/s of ``model_flops``, the profiler
+    split, the launches on the main path and those made by checks."""
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    on_gpu = torch.device(device).type == "cuda"
+    label = f"{cell.arch_id}|{cell.shape_id}|{rec.get('variant')}"
+    base = torch.cuda.memory_allocated(device) if on_gpu else 0
+    t_start = time.perf_counter()
+    expected = cell_expected(cell, on_gpu)
+    main = dict.fromkeys(expected, 0)
+    checks_made = dict.fromkeys(expected, 0)
+    out = {"arch": cell.arch_id, "shape": cell.shape_id,
+           "variant": rec.get("variant", "baseline"), "kind": cell.kind,
+           "expected_per_step": expected,
+           "estimate_bytes": rec["memory"]["card_peak_est_bytes"]}
+    params = cell_params(cell, device, seed)
+    batch, edge_ids = cell_batch(cell, device, seed + 1, lm_shape)
+    want_out = rec["outputs"]
+    if lm_shape is not None and cell.kind != "train":
+        # a rehearsal's smaller LM batch: trace it again
+        from repro_torch.launch.dryrun import leaf_shapes
+        from repro_torch.launch.steps import _abstract, to_meta
+        want_out = leaf_shapes(_abstract(cell.fn, to_meta(params),
+                                         to_meta(batch)))
+
+    def step_call(state, **kw):
+        c0 = kernel_counts()
+        res = cell.fn(state, batch, **kw)
+        _cuda_sync(device)
+        got = _count_delta(c0)
+        assert got == expected, f"{label}: launches {got} != {expected}"
+        for k in main:
+            main[k] += got[k]
+        return res
+
+    if cell.kind == "train":
+        c0 = kernel_counts()
+        if edge_ids is not None:
+            b = batch["edge_src"].numel() // edge_ids["edge_src"].numel()
+            out["ids_checked"] = check_packed_ids(batch, edge_ids, b)
+        if parity:
+            out["parity"] = cell_parity(cell, params, batch, device,
+                                        edge_ids)
+        for k, v in _count_delta(c0).items():
+            checks_made[k] += v
+        if on_gpu:              # the checks' own memory is not the step's
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        state = {"params": params, "opt": adamw_init(params, AdamWConfig())}
+        del params
+        res = step_call(state)
+        check_cell_outputs(res, want_out, label)
+        state, met = res
+        del res
+        losses, secs = [float(met["loss"])], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            state, met = step_call(state)
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        assert np.isfinite(losses).all(), f"{label}: losses {losses}"
+        out["losses"] = losses
+        out["step_ms"] = statistics.median(secs) * 1e3
+        out["steps_ms"] = [t * 1e3 for t in secs]
+        out["profile"] = profile_cell_step(lambda: step_call(state), device)
+        del state, met
+    else:
+        if on_gpu:
+            torch.cuda.reset_peak_memory_stats(device)
+        shadow = []
+        res = step_call(params, **({"attend": shadow_attend(shadow)}
+                                   if cell.kind == "prefill" else {}))
+        check_cell_outputs(res, want_out, label)
+        finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(res)
+                     if t.is_floating_point())
+        assert finite, f"{label}: non-finite outputs"
+        del res
+        if shadow:
+            out["shadow_calls"] = len(shadow)
+            out["shadow_worst_err_over_atol"] = max(shadow)
+        if cell.kind == "prefill":
+            prof = profile_cell_step(lambda: step_call(params), device)
+            out["profile"] = prof
+            out["step_ms"] = prof["wall_ms"]
+            out["steps_ms"] = [prof["wall_ms"]]
+        else:
+            secs = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                step_call(params)
+                secs.append(time.perf_counter() - t0)
+            out["step_ms"] = statistics.median(secs) * 1e3
+            out["steps_ms"] = [t * 1e3 for t in secs]
+            out["profile"] = profile_cell_step(lambda: step_call(params),
+                                               device)
+    assert not out["profile"]["collectives"]["ops"], \
+        f"{label}: collectives on a world of one: {out['profile']}"
+    if on_gpu:
+        out["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated(device) - base
+        out["estimate_over_measured"] = (out["estimate_bytes"]
+                                         / max(1, out["max_memory_allocated"]))
+    out["tflop_per_s"] = cell.model_flops / (out["step_ms"] * 1e-3) / 1e12
+    out["model_flops"] = cell.model_flops
+    out["main_launches"] = main
+    out["check_launches"] = checks_made
+    out["wall_s"] = time.perf_counter() - t_start
+    del batch, edge_ids
+    return out
+
+
+def phase_cells(device, *, jobs: int | None = None, cells=None,
+                expect: dict | None = CELL_STATUS, free_bytes=None,
+                reps: int = CELL_STEP_REPS, lm_shape=None) -> dict:
+    """``[cells]``: every cell of ``cells`` (default: the 40 baseline
+    cells and :data:`CELL_VARIANTS`) dry-run on the card mesh
+    (``dryrun.run_cells``, ``jobs`` processes; :func:`check_dry_run`),
+    then one step of every cell whose card-path peak estimate fits in
+    :data:`CELLS_MEM_SHARE` of the device's free memory
+    (``free_bytes`` where the device is no card) run by
+    :func:`run_cell_on_device` at its catalog shapes, the baseline GNN
+    cells on :data:`CELL_PARITY_SHAPES` and the ``edges_compbin`` cells
+    with their parity checks.  A cell
+    not run is logged with its estimate."""
+    from repro_torch.launch.dryrun import run_cells
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.variants import apply_variant
+
+    t0 = time.perf_counter()
+    on_gpu = torch.device(device).type == "cuda"
+    jobs = jobs or max(1, min(8, os.cpu_count() or 1))
+    cells = cells or all_cell_jobs()
+    recs = run_cells(cells, "card", jobs)
+    dry_s = time.perf_counter() - t0
+    counts = check_dry_run(recs, expect, cells)
+    log(f"[cells] dry run of {len(recs)} cells on the card mesh in "
+        f"{dry_s:.1f} s on {jobs} processes: " + ", ".join(
+            f"{k} {v}" for k, v in counts.items()))
+    runs, not_run = [], []
+    for job, rec in zip(cells, recs):
+        if rec["status"] != "OK":
+            continue
+        gc.collect()
+        if on_gpu:
+            torch.cuda.empty_cache()
+            free = torch.cuda.mem_get_info(device)[0]
+        else:
+            free = free_bytes
+        est = rec["memory"]["card_peak_est_bytes"]
+        if est > CELLS_MEM_SHARE * free:
+            not_run.append({"arch": rec["arch"], "shape": rec["shape"],
+                            "variant": rec["variant"], "estimate_bytes": est,
+                            "free_bytes": free})
+            continue
+        kw = {**apply_variant(job[0], job[1], job[2]),
+              **(job[3] if len(job) > 3 else {})}
+        cell = build_cell(job[0], job[1], card_mesh(), **kw)
+        parity = rec["family"] == "gnn" and (
+            job[1] in CELL_PARITY_SHAPES if job[2] == "baseline"
+            else job[2] == "edges_compbin")
+        r = run_cell_on_device(cell, rec, device, reps=reps, parity=parity,
+                               lm_shape=lm_shape)
+        r["free_bytes"] = free
+        runs.append(r)
+        log_cell_run(r)
+        del cell
+    main = {k: sum(r["main_launches"][k] for r in runs)
+            for k in ("k1", "k2", "k2_grad", "k3")}
+    checks = {k: sum(r["check_launches"][k] for r in runs) for k in main}
+    return {"records": recs, "counts": counts, "dry_run_s": dry_s,
+            "jobs": jobs, "runs": runs, "not_run": not_run,
+            "main_launches": main, "check_launches": checks,
+            "wall_s": time.perf_counter() - t0}
+
+
+def log_cell_record(r: dict) -> None:
+    if r["status"] != "OK":
+        log(f"[cells] dry run {r['arch']}|{r['shape']}|{r['variant']}: "
+            f"{r['status']} {r.get('skip_reason', r.get('error', ''))[:80]}")
+        return
+    m, c, rl = r["memory"], r["cost"], r["roofline"]
+    log(f"[cells] dry run {r['arch']}|{r['shape']}|{r['variant']} "
+        f"({r['kind']}): {c['flops']:.4g} FLOP counted ({c['matmul_flops']:.4g}"
+        f" in products), {c['bytes_accessed']:.4g} B accessed, peak estimate "
+        f"{m['peak_est_bytes']:.4g} B (card path {m['card_peak_est_bytes']:.4g}"
+        f" B); roofline compute {rl['t_compute']:.4g} s at "
+        f"{rl['peak_flops'] / 1e12:.0f} TFLOP/s ({rl['compute_dtype']}), memory "
+        f"{rl['t_memory']:.4g} s, collective {rl['t_collective']:.4g} s, "
+        f"dominant {rl['dominant']}; useful_ratio {rl['useful_ratio']:.4f}"
+        + (f", arithmetic ratio {r['arith_ratio']:.4f}"
+           if "arith_ratio" in r else "")
+        + f"; trace {r['trace_s']:.1f} s")
+
+
+def log_cell_run(r: dict) -> None:
+    sp = r["profile"]
+    mem = (f"max_memory_allocated {r['max_memory_allocated']} B vs estimate "
+           f"{r['estimate_bytes']} B (estimate / measured "
+           f"{r['estimate_over_measured']:.3f})"
+           if "max_memory_allocated" in r else
+           f"estimate {r['estimate_bytes']} B")
+    extra = ""
+    if "parity" in r:
+        p = r["parity"]
+        extra += (f"; first step vs plain"
+                  + (" (fed the int64 ids)" if "ids_checked" in r else "")
+                  + f": loss rel err "
+                  f"{p['loss_rel_err']:.3g}, vs the CPU "
+                  f"{p['cpu_loss_rel_err']:.3g}"
+                  + (f", grads from float64 {p['kernel_relative_distance']:.3g}"
+                     f" (plain {p['plain_relative_distance']:.3g}) of max|g|"
+                     if "kernel_relative_distance" in p else
+                     f", grads max abs err "
+                     f"{max(p['grad_max_abs_err'].values()):.3g}"))
+    if "ids_checked" in r:
+        extra += f"; {r['ids_checked']} ids K1 decoded equal decode_ids"
+    if "shadow_calls" in r:
+        extra += (f"; {r['shadow_calls']} K3 calls x {CELL_SHADOW_ROWS} rows "
+                  f"held to float64, worst err / atol "
+                  f"{r['shadow_worst_err_over_atol']:.3g}")
+    log(f"[cells] ran {r['arch']}|{r['shape']}|{r['variant']} ({r['kind']}): "
+        f"step {r['step_ms']:.3f} ms (" + ", ".join(
+            f"{t:.1f}" for t in r["steps_ms"]) + f"), {r['tflop_per_s']:.3f} "
+        f"TFLOP/s of model FLOPs; {mem}; launches a step "
+        + ", ".join(f"{k} {v}" for k, v in r["expected_per_step"].items())
+        + extra + "; device ms by class: "
+        + ("not measured" if not sp["device_ms"] else ", ".join(
+            f"{k} {v:.3f}" for k, v in sp["device_ms"].items() if v)
+           + f"; idle share {sp['idle_share']:.3f}")
+        + f"; collectives {sp['collectives']['ops'] or 0}; "
+        f"wall {r['wall_s']:.1f} s")
+
+
+#: the edge ids of the GNN cells and of K2's timings at their shapes
+#: (:func:`cell_batch`): no degree law is claimed for them
+CELL_IDS = "uniform over the real nodes (Erdos-Renyi), -1 in the pads"
+#: ogbn-products' padded full-graph shapes: [E, 16] messages into [N, 16]
+OGB_E, OGB_N, OGB_REAL = 61_859_328, 2_449_152, (61_859_140, 2_449_029)
+#: K1's shapes in the two ``edges_compbin`` cells: (ids, b)
+K1_CELL_SHAPES = {"full_graph_sm": (10_752, 2), "minibatch_lg": (168_960, 3)}
+#: K3 at one sequence of the 32k prefill: q [1, 15, 32768, 64]
+K3_CELL_SHAPE = dict(b=1, hq=15, hkv=5, s=32768, dh=64)
+#: K3's shapes whose CUDA launches a call are counted in a fresh process
+#: (:func:`fresh_k2_launches`)
+K3_FRESH_SHAPES = {**MOE_K3_SHAPES,
+                   "cells_prefill": dict(dtype=torch.bfloat16,
+                                         **K3_CELL_SHAPE)}
+
+
+def measure_k3_long(flush, gen, workdir: str, rows: int = 8) -> dict:
+    """K3 ``tc_prefill`` at bf16 q[1,15,32768,64] over k/v[1,5,32768,64],
+    causal: ``rows`` sampled query rows held to :func:`attention_f64`
+    (the plain version's [S, S] scores are 4 GB a head: it is not run),
+    the kernel's and SDPA ``is_causal``'s CUDA-event times, the bound and
+    the CUDA launches of a call (in a fresh process: late in a run the
+    profiler lost one call's kernel of eight here)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sh = K3_CELL_SHAPE
+    b, hq, hkv, s, dh = sh["b"], sh["hq"], sh["hkv"], sh["s"], sh["dh"]
+    q, k, v = _k3_inputs(b, hq, hkv, s, s, dh, torch.bfloat16, gen)
+
+    def kernel():
+        return flash_attention(q, k, v)
+
+    got = kernel()
+    lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    rng = np.random.default_rng(3)
+    tol = K3_TOL[torch.bfloat16]
+    worst, worst_lib = 0.0, 0.0
+    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    atol = tol * max(1.0, float(v.abs().max()))
+    for r in rng.integers(0, s, rows):
+        r = int(r)
+        want = attention_f64(qs[:, r:r + 1], ks, vs, r)[:, 0]
+        err = float((got[:, :, r].double() - want).abs().max())
+        worst_lib = max(worst_lib, float(
+            (lib[:, :, r].double() - want).abs().max()))
+        assert err <= atol + tol * float(want.abs().max()), \
+            f"K3 at 32k, row {r}: max abs err {err} beyond {atol}"
+        worst = max(worst, err)
+    del got, lib
+    counted = fresh_k2_launches({}, workdir, ("cells_prefill",)) \
+        .get("cells_prefill")
+    ms = time_cuda(kernel, flush=flush, reps=10, warmup=2)
+    lib_ms = time_cuda(lambda: sdpa(q, k, v, is_causal=True,
+                                    enable_gqa=True), flush=flush)
+    nbytes, flops = k3_work(b, hq, hkv, s, dh, s, 0)
+    bms, by = k3_bound_ms(nbytes, flops)
+    design = plan(torch.bfloat16, hq // hkv * s, s, dh, b * hkv)[0]
+    return {"design": design, "dtype": "bfloat16", "b": b, "hq": hq,
+            "hkv": hkv, "sq": s, "kv_len": s, "dh": dh,
+            "rows_checked": rows, "max_abs_err": worst,
+            "library_max_abs_err": worst_lib, "ms": ms,
+            "plain_ms": "not run", "library_ms": lib_ms,
+            "library_call": "sdpa_is_causal", "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes, "flops": flops,
+            "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+            "cuda_launches_per_call": counted and counted[0]}
+
+
+def measure_cells_kernels(workdir: str) -> dict:
+    """K2 and its backward at ogbn-products' full-graph shapes (uniform
+    ids over the real nodes, -1 in the padded edge slots), K1 at the two
+    ``edges_compbin`` cells' shapes and K3 at the 32k prefill's, each
+    beside its bound, plain version and library call."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    flush = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+    ids = _ids(OGB_REAL[0], OGB_E, OGB_REAL[1], gen, "cuda").to(torch.int32)
+    k2 = measure_segment_sum_full_graph(ids, OGB_N, (16,), flush,
+                                        gen)["widths"][16]
+    k2g = measure_segment_sum_grad(ids, 16, OGB_N, flush, gen)
+    del ids
+    torch.cuda.empty_cache()
+    k1 = {label: measure_kernel(random_packed(n, b, gen), b, flush)
+          for label, (n, b) in K1_CELL_SHAPES.items()}
+    k3 = measure_k3_long(flush, gen, workdir)
+    del flush
+    torch.cuda.empty_cache()
+    return {"k2": k2, "k2_grad": k2g, "k1": k1, "k3": k3}
+
+
+def cells_slice(device, workdir: str) -> dict:
+    """``main``'s ``[cells]`` phase, also run alone to rehearse it: every
+    count zeroed just before :func:`phase_cells` and read just after
+    (the checks' launches taken off), then the kernels timed at the new
+    shapes (:func:`measure_cells_kernels`)."""
+    gc.collect()
+    # cuBLAS's workspaces (2 x 32 MiB) sit in segments the earlier phases'
+    # tensors left, and a segment with one live block cannot be returned:
+    # 22.8 GB stayed reserved with 67.6 MB allocated (NVIDIA H100 80GB
+    # HBM3, 700.00 W) until they were freed
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(device)
+    live = sorted(((o.numel() * o.element_size(), tuple(o.shape), str(o.dtype))
+                   for o in gc.get_objects() if isinstance(o, torch.Tensor)
+                   and o.is_cuda), reverse=True)
+    log(f"[cells] card memory before the phase: {free} B free of {total}, "
+        f"{torch.cuda.memory_allocated(device)} B allocated, "
+        f"{torch.cuda.memory_reserved(device)} B reserved; largest live "
+        f"CUDA tensors: {live[:6]}")
+    compbin_decode.launches = segment_sum.launches = 0
+    segment_sum.grad_launches = flash_attention.launches = 0
+    r = phase_cells(device)
+    got = kernel_counts()
+    main = {k: got[k] - r["check_launches"][k] for k in got}
+    assert main == r["main_launches"], (main, r["main_launches"])
+    ran = {(x["arch"], x["shape"], x["variant"]) for x in r["runs"]}
+    for name, key in (("k1", ("gcn-cora", "full_graph_sm", "edges_compbin")),
+                      ("k2", ("gcn-cora", "full_graph_sm", "baseline")),
+                      ("k3", ("smollm-360m", "prefill_32k", "baseline"))):
+        assert key in ran and main[name] > 0, (name, key, main)
+    for rec in r["records"]:
+        log_cell_record(rec)
+    for x in r["not_run"]:
+        log(f"[cells] not run {x['arch']}|{x['shape']}|{x['variant']}: card-"
+            f"path peak estimate {x['estimate_bytes']} B > "
+            f"{CELLS_MEM_SHARE} x {x['free_bytes']} B free")
+    log(f"[cells] dry run of {len(r['records'])} cells in {r['dry_run_s']:.1f}"
+        f" s on {r['jobs']} processes: " + ", ".join(
+            f"{k} {v}" for k, v in r["counts"].items())
+        + f" of the 40 baseline cells; {len(r['runs'])} cells run on the "
+        f"card, {len(r['not_run'])} not run; main-path launches "
+        + ", ".join(f"{k} {v}" for k, v in main.items())
+        + f"; phase wall {r['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    kern = measure_cells_kernels(workdir)
+    k2, k2g, k3 = kern["k2"], kern["k2_grad"], kern["k3"]
+    log(f"[kernel] segment_sum at ogbn-products' size, uniform ids: "
+        f"f32[{k2['e']},16] by int32[{k2['e']}] ({k2['valid_edges']} valid) "
+        f"-> f32[{k2['n']},16]: "
+        f"plan picks {k2['design']} {k2['ms']:.4f} ms (" + ", ".join(
+            f"{m} {v['ms']:.4f}" for m, v in k2["designs"].items())
+        + f"); bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}); plain "
+        f"{k2['plain_ms']:.4f} ms; index_add_ {k2['library_ms']:.4f} ms")
+    log(f"[kernel] segment_sum backward at ogbn-products' size, uniform "
+        f"ids: {k2g['ms']:.4f} ms "
+        f"at VEC {k2g['vec']}; bound {k2g['bound_ms']:.4f} ms; plain "
+        f"{k2g['plain_ms']:.4f} ms; library {k2g['library_ms']:.4f} ms "
+        f"({k2g['library_call']})")
+    for label, k1 in kern["k1"].items():
+        log(f"[kernel] compbin_decode at the {label} edges_compbin shape "
+            f"b={k1['b']} n={k1['n']}: {k1['ms']:.4f} ms; bound "
+            f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}); plain "
+            f"{k1['plain_ms']:.4f} ms; library "
+            + ("none" if k1["library_ms"] is None
+               else f"{k1['library_ms']:.4f} ms"))
+    log(f"[kernel] flash_attention {k3['design']} bf16 q[1,15,32768,64] over "
+        f"k/v[1,5,32768,64] causal: {k3['ms']:.4f} ms ({k3['tflop_per_s']:.1f}"
+        f" TFLOP/s, CUDA launches per call {k3['cuda_launches_per_call']}); "
+        f"bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}); plain not run "
+        f"(its [S, S] scores); SDPA is_causal {k3['library_ms']:.4f} ms; "
+        f"{k3['rows_checked']} rows held to float64 (max abs err "
+        f"{k3['max_abs_err']:.3g}, SDPA's {k3['library_max_abs_err']:.3g})")
+    r["kernels"] = kern
+    r["kernels_s"] = time.perf_counter() - t0
+    r["main_launches"] = main
+    return r
+
+
+def cells_kernel_entry(r: dict, name: str) -> dict:
+    """The ``cells`` entry of kernel ``name``'s item in the kernels line:
+    its shapes in this phase with their launches and times."""
+    kern, main = r["kernels"], r["main_launches"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+    if name == "compbin_decode":
+        return {label: {"shape": f"uint8[{k['n']}*{k['b']}] -> "
+                                 f"int32[{k['n']}]", **{x: k[x] for x in keys}}
+                for label, k in kern["k1"].items()} | {"launches": main["k1"]}
+    if name == "segment_sum":
+        k = kern["k2"]
+        return {"ogb_products": {"shape": f"f32[{k['e']},16] by "
+                                          f"int32[{k['e']}] -> "
+                                          f"f32[{k['n']},16]",
+                                 "ids": CELL_IDS, "design": k["design"],
+                                 **{x: k[x] for x in keys}},
+                "launches": main["k2"]}
+    if name == "segment_sum_backward":
+        k = kern["k2_grad"]
+        return {"ogb_products": {"shape": f"f32[{k['n']},16] by "
+                                          f"int32[{k['e']}] -> "
+                                          f"f32[{k['e']},16]",
+                                 "ids": CELL_IDS, "vec": k["vec"],
+                                 **{x: k[x] for x in keys}},
+                "launches": main["k2_grad"]}
+    k = kern["k3"]
+    return {"prefill_32k": {"shape": "bf16 q[1,15,32768,64] k/v[1,5,32768,64]"
+                                     " causal", "design": k["design"],
+                            **{x: k[x] for x in keys}},
+            "launches": main["k3"]}
+
+
+# ---------------------------------------------------------------------------
 # [compile]: the graph compiler on the load file, then a cold engine on
 # the compiled file answering the hot-set trace
 # ---------------------------------------------------------------------------
@@ -5292,6 +6218,13 @@ def main(argv=None) -> int:
         din_r, k1d, din_k1 = ds["din"], ds["k1"], ds["k1_launches"]
         k2d = ds["table_grad"]
 
+        # phase 15h: [cells] build_cell's 40 cells (and 3 variants)
+        # dry-run on the card mesh, those whose estimate fits run on the
+        # card; every count zeroed just before and read just after
+        # (cells_slice); then K1, K2, its backward and K3 at the new shapes
+        cl = cells_slice(device, workdir)
+        cl_k = cl["main_launches"]
+
         # phase 16: [compile] the load file through the graph compiler,
         # the hot-set trace through a cold engine on the compiled file;
         # K1's count zeroed just before and read just after
@@ -5321,7 +6254,7 @@ def main(argv=None) -> int:
                    traversal=trav, crossover=cross, train=trn, gnn2=g2,
                    segment_sum_gnn2=k2n, moe=moe, lm_train=lmt,
                    segment_sum_moe=k2m, flash_attention_moe=k3m,
-                   din=din_r, kernel_din_request=k1d,
+                   din=din_r, kernel_din_request=k1d, cells=cl,
                    segment_sum_din_table_grad=k2d,
                    segment_sum_full_graph=k2f,
                    segment_sum_backward=k2g, compile=comp,
@@ -5345,7 +6278,7 @@ def main(argv=None) -> int:
         "name": "compbin_decode", "route": "cuda", "source": CUDA_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": (main_path_launches + hot_k1 + trav_k1 + gnn_k1
-                     + train_k1 + g2_k1 + din_k1 + comp_k1),
+                     + train_k1 + g2_k1 + din_k1 + cl_k["k1"] + comp_k1),
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -5355,10 +6288,11 @@ def main(argv=None) -> int:
                         "launches": din_k1, **{key: k1d[key] for key in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "max_abs_err")}},
+        "cells": cells_kernel_entry(cl, "compbin_decode"),
     }, {
         "name": "segment_sum", "route": "cuda", "source": K2_CUDA_SOURCE,
         "replaces": K2_TPU_KERNEL,
-        "launches": gnn_k2 + train_k2 + g2_k2 + moe_k2 + lmt_k2,
+        "launches": gnn_k2 + train_k2 + g2_k2 + moe_k2 + lmt_k2 + cl_k["k2"],
         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
         "ms": k2["layer0"]["ms"], "plain_ms": k2["layer0"]["plain_ms"],
         "bound_ms": k2["layer0"]["bound_ms"],
@@ -5399,12 +6333,14 @@ def main(argv=None) -> int:
             "e", "d", "n", "valid_edges", "design", "fastest", "ms",
             "plain_ms", "library_ms", "autograd_ms", "bound_ms", "bound_by",
             "gb_per_s")} | {m: v["ms"] for m, v in k2d["designs"].items()},
+        "cells": cells_kernel_entry(cl, "segment_sum"),
     }, {
         "name": "segment_sum_backward", "route": "cuda",
         "source": K2_CUDA_SOURCE, "replaces": K2_TPU_KERNEL,
         "note": ("K2's backward (a gather); the JAX package trains through "
                  "XLA's segment_sum and has no backward kernel"),
-        "launches": train_k2b + g2_k2b + lmt_k2b, "max_abs_err": 0.0,
+        "launches": train_k2b + g2_k2b + lmt_k2b + cl_k["k2_grad"],
+        "max_abs_err": 0.0,
         "ms": k2g["full_graph"]["ms"],
         "plain_ms": k2g["full_graph"]["plain_ms"],
         "bound_ms": k2g["full_graph"]["bound_ms"],
@@ -5431,9 +6367,10 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "library", "cuda_launches_per_call")}
             for label, r in k2m.items() if "backward" in r},
+        "cells": cells_kernel_entry(cl, "segment_sum_backward"),
     }, {
         "name": "flash_attention", "route": "cuda", "source": K3_CUDA_SOURCE,
-        "replaces": K3_TPU_KERNEL, "launches": lm_k3 + moe_k3,
+        "replaces": K3_TPU_KERNEL, "launches": lm_k3 + moe_k3 + cl_k["k3"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in [*k3.values(), *k3m.values()]),
         "ms": k3["prefill"]["ms"], "plain_ms": k3["prefill"]["plain_ms"],
@@ -5456,6 +6393,7 @@ def main(argv=None) -> int:
             "nsplit", "cuda_launches_per_call", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_call", "max_abs_err")}
             for kind, r in k3m.items()},
+        "cells": cells_kernel_entry(cl, "flash_attention"),
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,8 +10,15 @@ routed top-k experts with capacity-based dispatch by sort + scatter, the
 ``scatter`` and ``gather`` arms of ``moe_dispatch``, optional shared
 experts with a sigmoid gate).  Entry points: ``forward``, ``prefill``
 (builds the KV cache) and ``decode_step`` (one token against it) for
-serving; ``loss_fn`` and ``forward_hidden`` for training.  The mesh
-options raise (one card).
+serving; ``loss_fn`` and ``forward_hidden`` for training.
+
+Mesh fields (``attn_head_axis``, ``attn_batch_shard_axes``,
+``batch_axes``, ``moe_ep_axis``): the JAX package turns them into
+sharding constraints on activations (``_wsc`` and the constraints on
+q/k/v and the MoE dispatch buffer).  A constraint never changes a value,
+and a tensor of one process has one shard, so here they are accepted and
+each constraint is the identity (:func:`_wsc`); ``attn_kv_expand`` acts
+as there.
 
 Attention: serving on a CUDA tensor sends EVERY call — prefill and
 decode, whatever ``attn_impl`` says — through the hand-written
@@ -55,9 +62,6 @@ from repro_torch.models.common import (cross_entropy_loss, dense_init,
                                        layer_norm, rms_norm, wide)
 
 Params = dict
-
-_MESH_FIELDS = ("attn_head_axis", "attn_batch_shard_axes", "batch_axes",
-                "moe_ep_axis")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,12 +107,6 @@ class TransformerConfig:
     attn_kv_expand: bool = False
     attn_batch_shard_axes: Optional[tuple] = None
     batch_axes: Optional[tuple] = None
-
-    def __post_init__(self):
-        for name in _MESH_FIELDS:
-            if getattr(self, name) is not None:
-                raise ValueError(f"{name}={getattr(self, name)!r}: the port "
-                                 f"runs on one card and has no mesh")
 
     @property
     def e_pad(self) -> int:
@@ -235,8 +233,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     xr = wide(x[..., :rot])
-    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    half = rot // 2
+    x1, x2 = xr[..., :half], xr[..., half:]
+    if torch.is_grad_enabled():
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    else:
+        # the same products and sums, written in place: no [.., rot]
+        # temporaries beyond one half (a 32 x 32768-token prefill's q
+        # holds 4 GB less)
+        out = torch.empty_like(xr)
+        torch.mul(x1, cos, out=out[..., :half]).sub_(x2 * sin)
+        torch.mul(x2, cos, out=out[..., half:]).add_(x1 * sin)
+    del xr, x1, x2          # freed before the cast allocates
+    if rot == x.shape[-1]:
+        return out.to(x.dtype)
     return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
 
 
@@ -335,7 +345,13 @@ def attention(q, k, v, cfg: TransformerConfig, *, causal: bool,
 # ---------------------------------------------------------------------------
 
 def swiglu(x, wg, wu, wd):
-    h = torch.nn.functional.silu(x @ wg) * (x @ wu)
+    """``(silu(x @ wg) * (x @ wu)) @ wd``; where no gradient is taken the
+    SiLU and the product run in place (the same values, two [.., f]
+    buffers fewer: a 32 x 32768-token prefill's FFN holds 11 GB less)."""
+    if torch.is_grad_enabled():
+        h = torch.nn.functional.silu(x @ wg) * (x @ wu)
+    else:
+        h = torch.nn.functional.silu(x @ wg, inplace=True).mul_(x @ wu)
     return h @ wd
 
 
@@ -457,17 +473,28 @@ def _norm(x, scale, bias, cfg: TransformerConfig):
     return rms_norm(x, scale)
 
 
+def _wsc(x: torch.Tensor, axes_first, ndim: int) -> torch.Tensor:
+    """The JAX package's sharding constraint on the leading (batch) dim:
+    the identity on a tensor of one process."""
+    del axes_first, ndim
+    return x
+
+
 def _layer(x, lp: Params, cfg: TransformerConfig, positions, cache_k,
-           cache_v, cache_len: int, training: bool = False):
+           cache_v, cache_len: int, training: bool = False, attend=None):
     """One transformer block: ``(x, lb_loss)``.  cache_*: [B, Smax, Hk,
     dh] or None; the new keys and values are written into them in place.
     ``training`` sends the attention to its plain backends (the kernel
-    has no backward); serving (a cache) sizes the MoE buffer for no drop
-    at B*S <= 4096 and at a 2x capacity factor above."""
+    has no backward); otherwise it goes through ``attend`` (default
+    :func:`attention`), called as :func:`attention` is.  Serving (a
+    cache) sizes the MoE buffer for no drop at B*S <= 4096 and at a 2x
+    capacity factor above."""
     B, S, d = x.shape
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
     h = _norm(x, lp["attn_norm_scale"], lp.get("attn_norm_bias"), cfg)
+    if cfg.attn_batch_shard_axes and cache_k is None:
+        h = _wsc(h, cfg.attn_batch_shard_axes, 3)
     q = (h @ lp["wq"].reshape(d, H * dh)).view(B, S, H, dh)
     k = (h @ lp["wk"].reshape(d, Hk * dh)).view(B, S, Hk, dh)
     v = (h @ lp["wv"].reshape(d, Hk * dh)).view(B, S, Hk, dh)
@@ -486,10 +513,18 @@ def _layer(x, lp: Params, cfg: TransformerConfig, positions, cache_k,
     if S > 1 and cfg.attn_kv_expand:
         kk = kk.repeat_interleave(H // Hk, dim=2)
         vv = vv.repeat_interleave(H // Hk, dim=2)
+    # the JAX package's head-axis constraint on q/k/v (S > 1) is the
+    # identity here, as _wsc is
 
-    attend = attention_plain if training else attention
+    attend = attention_plain if training else (attend or attention)
     attn = attend(q, kk, vv, cfg, causal=True, q_offset=q_offset)
-    x = x + attn.reshape(B, S, H * dh) @ lp["wo"].reshape(H * dh, d)
+    attn_out = attn.reshape(B, S, H * dh) @ lp["wo"].reshape(H * dh, d)
+    if cfg.attn_batch_shard_axes and cache_k is None:
+        attn_out = _wsc(attn_out, cfg.batch_axes, 3)
+    x = x + attn_out
+    # the attention's tensors are dead past here: free them before the
+    # FFN's [B, S, f] buffers exist (autograd keeps what it saved)
+    del q, k, v, kk, vv, attn, attn_out
     h = _norm(x, lp["ffn_norm_scale"], lp.get("ffn_norm_bias"), cfg)
     if not cfg.moe:
         return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
@@ -500,10 +535,10 @@ def _layer(x, lp: Params, cfg: TransformerConfig, positions, cache_k,
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            cache: Optional[Params], training: bool = False):
+            cache: Optional[Params], training: bool = False, attend=None):
     """Final-normed hidden states [B, S, d] and the load-balance loss
     summed over layers (float32; 0 for a dense FFN); advances
-    ``cache["len"]``."""
+    ``cache["len"]``.  ``attend``: as :func:`_layer` takes it."""
     S = tokens.shape[1]
     x = params["embed"][tokens].to(cfg.dtype)
     cache_len = cache["len"] if cache is not None else 0
@@ -514,9 +549,10 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         lp = {name: t[i] for name, t in layers.items()}
         if cache is not None:
             x, lb = _layer(x, lp, cfg, positions, cache["k"][i],
-                           cache["v"][i], cache_len)
+                           cache["v"][i], cache_len, attend=attend)
         else:
-            x, lb = _layer(x, lp, cfg, positions, None, None, 0, training)
+            x, lb = _layer(x, lp, cfg, positions, None, None, 0, training,
+                           attend)
         lb_sum = lb_sum + lb
     if cache is not None:
         cache["len"] = cache_len + S
@@ -576,19 +612,20 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, *, attend=None):
     """Build a KV cache from a prompt; returns (last-token logits, cache).
     Only the last position goes through the LM head (the JAX package
-    computes every position's logits and keeps the last)."""
+    computes every position's logits and keeps the last).  ``attend``
+    replaces :func:`attention` (a cost trace's footprint, a check)."""
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_len or S, device=tokens.device)
-    x, _ = _hidden(params, tokens, cfg, cache)
+    x, _ = _hidden(params, tokens, cfg, cache, attend=attend)
     return _logits(params, x[:, -1], cfg), cache
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache: Params,
-                cfg: TransformerConfig):
+                cfg: TransformerConfig, *, attend=None):
     """One-token decode: tokens [B, 1] -> (logits [B, V], cache updated
-    in place)."""
-    x, _ = _hidden(params, tokens, cfg, cache)
+    in place); ``attend`` as :func:`prefill` takes it."""
+    x, _ = _hidden(params, tokens, cfg, cache, attend=attend)
     return _logits(params, x[:, -1], cfg), cache

@@ -826,3 +826,62 @@ def test_compressed_step_on_an_nccl_world_of_one(cuda, smoke):
         torch.cuda.synchronize()
     assert not dist.is_initialized()
     assert len(calls) == 1 and np.isfinite(float(met["loss"]))
+
+
+def _cell(smoke, arch, shape, variant="baseline", **kw):
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.variants import apply_variant
+    build = {**apply_variant(arch, shape, variant), **kw}
+    rec = run_cell(arch, shape, "card", variant, build_kw=kw)
+    return build_cell(arch, shape, card_mesh(), **build), rec
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "pna", "meshgraphnet",
+                                  "dimenet"])
+def test_gnn_cell_steps_on_the_card(cuda, smoke, arch):
+    """``[cells]``'s runner on a GNN's ``molecule`` cell: K2 and its
+    backward launched as ``cell_k2_per_step`` reckons every step, the
+    outputs' shapes and dtypes the abstract trace's, the first step held
+    to the plain path and to the CPU, losses finite."""
+    cell, rec = _cell(smoke, arch, "molecule")
+    r = smoke.run_cell_on_device(cell, rec, cuda, reps=1, parity=True)
+    fwd, bwd = smoke.cell_k2_per_step(cell)
+    assert r["main_launches"]["k2"] == 3 * fwd and fwd > 0
+    assert r["main_launches"]["k2_grad"] == 3 * bwd and bwd > 0
+    assert r["parity"]["cpu_loss_rel_err"] <= smoke.TRAIN_LOSS_RTOL
+    assert r["max_memory_allocated"] > 0
+
+
+def test_compbin_cell_decodes_through_k1(cuda, smoke):
+    """gcn-cora on ``full_graph_sm`` under ``edges_compbin``: two K1
+    launches a step, the ids K1 decodes equal the packed ones, and the
+    first step (K1 and K2) held to the plain path fed the int64 ids."""
+    cell, rec = _cell(smoke, "gcn-cora", "full_graph_sm", "edges_compbin")
+    r = smoke.run_cell_on_device(cell, rec, cuda, reps=1, parity=True)
+    assert r["main_launches"]["k1"] == 3 * 2
+    assert r["check_launches"]["k1"] == 2 + 2
+    assert r["ids_checked"] == 2 * 10_752
+    assert r["parity"]["loss_rel_err"] <= smoke.TRAIN_LOSS_RTOL
+
+
+def test_prefill_cell_goes_through_k3(cuda, smoke):
+    """A 2-layer smollm-360m prefill cell at full width on a [2, 1024]
+    batch: one K3 launch a layer, sampled rows held to float64."""
+    cell, rec = _cell(smoke, "smollm-360m", "prefill_32k",
+                      cfg_overrides={"n_layers": 2})
+    r = smoke.run_cell_on_device(cell, rec, cuda, reps=1,
+                                 lm_shape=(2, 1024))
+    assert r["main_launches"]["k3"] == 2 * 2
+    assert r["shadow_calls"] == 2 and r["shadow_worst_err_over_atol"] <= 1
+
+
+def test_dry_run_estimate_bounds_a_cells_memory(cuda, smoke):
+    """DIN ``serve_p99``: the card-path estimate is the memory the step
+    took beyond what was allocated before it, to the caching
+    allocator's rounding of each block up to 512 B."""
+    cell, rec = _cell(smoke, "din", "serve_p99")
+    r = smoke.run_cell_on_device(cell, rec, cuda, reps=1)
+    assert 0.999 <= r["estimate_over_measured"] <= 1.05
+    assert r["main_launches"] == {"k1": 0, "k2": 0, "k2_grad": 0, "k3": 0}

@@ -58,7 +58,9 @@ def test_every_slice_module_is_present():
                  "launch.train", "graph.reorder", "launch.compile_graph",
                  "data.tokens", "configs.qwen2_moe_a2_7b",
                  "configs.dbrx_132b", "models.recsys", "models.recsys.din",
-                 "configs.din", "optim.compression"):
+                 "configs.din", "optim.compression", "launch.mesh",
+                 "launch.dryrun", "launch.hlo_analysis", "launch.variants",
+                 "distributed.elastic"):
         assert f"repro_torch.{want}" in mods, want
     for kernel in ("compbin_decode", "segment_sum", "flash_attention"):
         assert (SRC / "repro_torch" / "csrc" / f"{kernel}.cu").is_file()

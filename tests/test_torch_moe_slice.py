@@ -192,6 +192,28 @@ def test_lm_train_phase_on_cpu(smoke, tmp_path, one_thread):
     smoke.log_lm_train(out)
 
 
+def test_lm_train_restart_checkpoints_under_its_root(smoke, tmp_path,
+                                                    one_thread):
+    """The restart writes its checkpoints under ``ckpt_root`` (a RAM file
+    system on the card's machine: ``LM_CKPT_ROOT``), removes the one it
+    resumed from once the next step is done, leaves none behind, and
+    records the bytes it wrote; ``LM_TRAIN`` restarts both LMs."""
+    root = tmp_path / "ram"
+    root.mkdir()
+    out = smoke.phase_lm_train("cpu", str(tmp_path), reduced=True,
+                               ckpt_root=str(root), models=(
+                                   ("qwen2-moe-a2.7b", None, 4, 32, 5, 6),))
+    rs = out["models"]["qwen2-moe-a2.7b"]["restart"]
+    assert rs["ckpt_root"] == str(root) and rs["checkpoints"] == 2
+    assert rs["loss_rel_err"] == 0.0
+    state = out["models"]["qwen2-moe-a2.7b"]["state_bytes"]
+    assert state < rs["checkpoint_bytes"] < state + (1 << 16)   # + headers
+    assert rs["bytes_written"] == 2 * rs["checkpoint_bytes"]
+    assert list(root.iterdir()) == []
+    assert all(m[4] and m[5] for m in smoke.LM_TRAIN)
+    smoke.log_lm_train(out)
+
+
 def test_lm_train_parity_detects_a_lost_combine_message(smoke, tmp_path,
                                                         monkeypatch):
     from repro_torch.models import transformer as tf

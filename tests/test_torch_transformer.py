@@ -115,7 +115,10 @@ def test_configs_and_param_counts_mirror_the_reference(pair):
 
 def test_moe_and_mesh_options_raise():
     """The MoE configs build and count as the reference's (the MoE FFN
-    is ported); the mesh fields still raise on one card."""
+    is ported); the mesh fields, which raised while the port had no mesh
+    layer, now build a config whose logits equal those without them (a
+    sharding constraint is the identity on one process's tensors), and
+    ``attn_kv_expand`` repeats the KV heads to the same logits."""
     moe = ref_get_arch("qwen2-moe-a2.7b").make_reduced()
     fields = {f.name: getattr(moe, f.name) for f in dataclasses.fields(moe)}
     fields["dtype"] = torch.float32
@@ -126,17 +129,26 @@ def test_moe_and_mesh_options_raise():
     assert params["layers"]["router"].dtype == torch.float32
     assert tuple(params["layers"]["we_gate"].shape) == (
         cfg.n_layers, cfg.e_pad, cfg.d_model, cfg.moe_d_ff)
+    tokens = torch.randint(0, cfg.vocab, (2, 6),
+                           generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
-        logits, _, lb = tf.forward(params, torch.zeros(1, 4,
-                                                       dtype=torch.long),
-                                   cfg)
-    assert tuple(logits.shape) == (1, 4, cfg.vocab) and float(lb) > 0
-    dense = get_arch("smollm-360m").make_reduced()
+        logits, _, lb = tf.forward(params, tokens, cfg)
+        meshed = dataclasses.replace(cfg, moe_ep_axis="model",
+                                     attn_head_axis="model",
+                                     batch_axes=("data",))
+        assert torch.equal(tf.forward(params, tokens, meshed)[0], logits)
+    assert tuple(logits.shape) == (2, 6, cfg.vocab) and float(lb) > 0
+    dense = dataclasses.replace(get_arch("smollm-360m").make_reduced(),
+                                dtype=torch.float32)
+    dparams = tf.init_params(dense, torch.Generator().manual_seed(2))
+    want = tf.loss_fn(dparams, tokens % dense.vocab, tokens % dense.vocab,
+                      dense)
     for name, value in (("attn_head_axis", "model"), ("batch_axes", ("data",)),
                         ("attn_batch_shard_axes", ("data",)),
-                        ("moe_ep_axis", "model")):
-        with pytest.raises(ValueError, match="no mesh"):
-            dataclasses.replace(dense, **{name: value})
+                        ("moe_ep_axis", "model"), ("attn_kv_expand", True)):
+        got = tf.loss_fn(dparams, tokens % dense.vocab, tokens % dense.vocab,
+                         dataclasses.replace(dense, **{name: value}))
+        assert torch.allclose(got, want, rtol=1e-6, atol=0), name
 
 
 def test_rope_and_norms_match_the_reference():
@@ -180,3 +192,23 @@ def test_attn_p_bf16_and_kv_expand_stay_within_the_reference_bounds(pair):
     # p in bf16: the reference's own <= 1e-2 compromise
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("rope_pct", [1.0, 0.25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_in_place_serving_ops_equal_the_training_ones(rope_pct, dtype):
+    """Without grad, RoPE and SwiGLU run in place: the same bits as the
+    out-of-place ops the training route takes."""
+    cfg = dataclasses.replace(get_arch("smollm-360m").make_reduced(),
+                              rope_pct=rope_pct)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 5, 3, cfg.d_head, generator=g).to(dtype)
+    pos = torch.arange(5)[None].expand(2, 5) + 7
+    w = [torch.randn(cfg.d_head, 16, generator=g).to(dtype),
+         torch.randn(cfg.d_head, 16, generator=g).to(dtype),
+         torch.randn(16, cfg.d_head, generator=g).to(dtype)]
+    with torch.enable_grad():
+        want_r, want_s = tf.apply_rope(x, pos, cfg), tf.swiglu(x, *w)
+    with torch.no_grad():
+        got_r, got_s = tf.apply_rope(x, pos, cfg), tf.swiglu(x, *w)
+    assert torch.equal(got_r, want_r) and torch.equal(got_s, want_s)
