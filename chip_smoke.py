@@ -49,8 +49,14 @@ dry-run ``build_cell``'s 40 cells and 3 variants on the card's mesh and
 run one step of each whose peak estimate fits the card (``[cells]``:
 outputs held to the abstract trace's, the small GNN cells' first step to
 the plain path, packed edges decoded by K1, a 32k-token prefill's
-sampled attention rows to float64), and
-compile the load file with the graph
+sampled attention rows to float64), run the four examples of
+``examples/*_torch.py`` in this process at their own sizes
+(``[examples]``: the quickstart's streamed CSR equal to the generated
+one at rmat(20, 16), the GNN example's first steps held to the plain
+path and its loss falling, DIN's first request held to the plain CPU
+path, lm-100m as the example draws it and from its attention's true
+fan-in, the latter's first step held to float64 and its loss falling
+below ln(vocab)), and compile the load file with the graph
 compiler and serve the hot-set trace from the compiled file -- checks
 every result against an independent plain computation, and prints what
 it measured.
@@ -65,7 +71,8 @@ is printed.  Without a CUDA device it exits with code 2 at once.
 The load/serve/LogCSR/hot-set/traversal/GNN/train/gnn2/compile phases
 are plain functions of ``device`` and ``scale``, the LM phases of ``(device, cfg, batch, prompt_len,
 n_tokens)``, ``[moe]``, ``[lm_train]`` and ``[din]`` of ``device`` with
-a ``reduced`` switch, ``[cells]`` of ``device`` and a cell list, so the
+a ``reduced`` switch, ``[cells]`` of ``device`` and a cell list,
+``[examples]`` of ``device`` and a list of runs, so the
 CPU tests run the same code at a small size.
 """
 
@@ -74,6 +81,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -85,6 +93,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, NamedTuple, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "src"))
@@ -1999,7 +2008,8 @@ def cuda_launches(fn, prefix: str, attempts: int = 4) -> tuple | None:
 
 #: run by :func:`fresh_k2_launches` in a new Python process: argv[1]
 #: this file, argv[2] a JSON list of (label, ids .npy, N, D, backward),
-#: argv[3] a JSON list of ``K3_FRESH_SHAPES`` kinds
+#: argv[3] a JSON list of ``K3_FRESH_SHAPES`` kinds, argv[4] a JSON list
+#: of K1 cases (label, n, b)
 _FRESH_K2_LAUNCHES = """
 import importlib.util, json, sys
 import numpy as np, torch
@@ -2020,6 +2030,10 @@ gen = torch.Generator(device="cuda").manual_seed(0)
 for kind in json.loads(sys.argv[3]):
     out[kind] = cs.cuda_launches(cs.flash_call(cs.K3_FRESH_SHAPES[kind], gen),
                                  "k3_")
+for label, n, b in json.loads(sys.argv[4]):
+    packed = cs.random_packed(n, b, gen)
+    out[label] = cs.cuda_launches(lambda: cs.compbin_decode(packed, b),
+                                  "decode_")
 print(json.dumps(out))
 """
 
@@ -2032,11 +2046,13 @@ def fresh_k2_grad_launches(cases: dict, d: int, workdir: str) -> dict:
                               in cases.items()}, workdir)
 
 
-def fresh_k2_launches(cases: dict, workdir: str, k3_kinds=()) -> dict:
+def fresh_k2_launches(cases: dict, workdir: str, k3_kinds=(),
+                      k1_cases=None) -> dict:
     """K2's CUDA launches per call (:func:`cuda_launches`) at each case
     ``label -> (ids, n, d, backward)`` (the forward, or with ``backward``
-    its gather), and K3's at each of ``k3_kinds`` (``K3_FRESH_SHAPES``,
-    :func:`flash_call`), counted in a new Python process that loads the
+    its gather), K3's at each of ``k3_kinds`` (``K3_FRESH_SHAPES``,
+    :func:`flash_call`) and K1's at each of ``k1_cases`` (``label -> (n,
+    b)``, random packed bytes), counted in a new Python process that loads the
     libraries this run built: late in this process the profiler lost
     kernel records (the same window in a fresh process counts every
     call).  The ids go over as ``.npy`` files in ``workdir``; the process
@@ -2049,7 +2065,9 @@ def fresh_k2_launches(cases: dict, workdir: str, k3_kinds=()) -> dict:
     done = subprocess.run(
         [sys.executable, "-c", _FRESH_K2_LAUNCHES,
          os.path.abspath(__file__), json.dumps(args),
-         json.dumps(list(k3_kinds))],
+         json.dumps(list(k3_kinds)),
+         json.dumps([(label, int(n), int(b)) for label, (n, b)
+                     in (k1_cases or {}).items()])],
         check=True, capture_output=True, text=True, timeout=300)
     return json.loads(done.stdout.strip().splitlines()[-1])
 
@@ -5568,6 +5586,492 @@ def cells_kernel_entry(r: dict, name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [examples]: the four examples of examples/*_torch.py, run in process
+# ---------------------------------------------------------------------------
+
+def no_launches(args, r: dict, first: dict) -> dict:
+    """An example whose path runs no kernel on the card."""
+    return {}
+
+
+def quickstart_launches(args, r: dict, first: dict) -> dict:
+    """K1 once a streamed partition."""
+    return {"k1": r["stream"]["partitions"]}
+
+
+def gnn_launches(args, r: dict, first: dict) -> dict:
+    """K1 once a streamed partition of the hosts or a device batch of the
+    query engine (``--sampled``); K2 forward and backward
+    :func:`k2_per_step` a step."""
+    fwd, bwd = k2_per_step("gcn-cora", first["args"][2])
+    return {"k1": (r["engine"]["device_batches"] if args.sampled
+                   else sum(h["partitions"] for h in r["hosts"])),
+            "k2": args.steps * fwd, "k2_grad": args.steps * bwd}
+
+
+def example_launches(run: "ExampleRun", args, r: dict, first: dict,
+                     on_gpu: bool) -> dict:
+    """The kernel launches ``run`` makes: on the card as its ``launches``
+    reckons them, K3 never (training takes the plain attention); none on
+    the CPU."""
+    want = {"k1": 0, "k2": 0, "k2_grad": 0, "k3": 0}
+    if on_gpu:
+        want.update(run.launches(args, r, first))
+    return want
+
+
+def check_example_launches(label: str, got: dict, want: dict) -> None:
+    """The kernels launched in an example's run as ``want`` reckons them
+    (:func:`example_launches`), and on the card every kernel that run's
+    path holds launched."""
+    assert got == want, f"{label}: kernel launches {got}, expected {want}"
+
+
+def check_losses_fall(label: str, losses: list, window: int) -> dict:
+    """Every loss finite and the mean of the last ``window`` below that of
+    the first ``window``; returns both means."""
+    first = float(np.mean(losses[:window]))
+    last = float(np.mean(losses[-window:]))
+    assert len(losses) >= window and np.isfinite(losses).all(), \
+        f"{label}: {len(losses)} losses, not all finite: {losses}"
+    assert last < first, (f"{label}: the loss does not fall: mean of the "
+                          f"first {window} {first}, of the last {last}")
+    return {"first_mean": first, "last_mean": last}
+
+
+def check_lm_learns(losses: list, vocab: int, window: int) -> dict:
+    """The LM example's printed claim: the mean of the last ``window``
+    losses below that of the first and below ln(vocab), the unigram
+    entropy of a uniform draw."""
+    r = check_losses_fall("lm", losses, window)
+    assert r["last_mean"] < math.log(vocab), \
+        (f"lm: mean of the last {window} losses {r['last_mean']} not below "
+         f"ln(vocab) {math.log(vocab)}")
+    return {**r, "ln_vocab": math.log(vocab)}
+
+
+def check_first_loss(label: str, loss: float, plain: float) -> float:
+    """The loss an example printed for its first step within
+    ``TRAIN_LOSS_RTOL`` of ``plain`` (the plain path's, or float64's, on
+    the same params and batch); returns the relative error."""
+    err = abs(loss - plain) / abs(plain)
+    assert err <= TRAIN_LOSS_RTOL, \
+        f"{label}: first-step loss {loss} != the reference's {plain}"
+    return err
+
+
+def gnn_checks(label: str, args, r: dict, first: dict, device) -> dict:
+    """The first step on the kernel path against the plain path on the
+    same device (:func:`first_step_parity`, as ``[train]`` holds its
+    own) with the first loss the example printed held to it; the losses
+    falling over 10 steps."""
+    from repro_torch.models.gnn import gcn
+
+    params, batch, cfg = first["args"]
+    on_gpu = torch.device(device).type == "cuda"
+    per_step = k2_per_step("gcn-cora", cfg) if on_gpu else (0, 0)
+    par = first_step_parity(lambda p: gcn.loss_fn(p, batch, cfg),
+                            params, per_step)
+    par["printed_loss_rel_err"] = check_first_loss(
+        label, r["losses"][0], par["plain_loss"])
+    return {"parity": par, **check_losses_fall(label, r["losses"], 10),
+            "k2_case": (batch["edge_dst"], int(batch["x"].shape[0]),
+                        cfg.d_hidden)}
+
+
+def din_checks(label: str, args, r: dict, first: dict, device) -> dict:
+    """The first request's scores within ``DIN_TOL`` of the plain CPU
+    path, as ``[din]`` holds them."""
+    from repro_torch.models.recsys import din
+
+    params, batch, cfg = first["args"]
+    with torch.inference_mode():
+        want = din.forward(to_cpu(params), to_cpu(batch), cfg)
+    return {"max_abs_err": din_close(torch.from_numpy(r["scores"][0]),
+                                     want, f"{label} request 0"),
+            "rows_checked": int(want.numel())}
+
+
+#: the LM's first-step gradients in f32 against float64 on the same
+#: params and batch: each within this share of its max|g|.  The f32
+#: rounding of lm-100m's first step at its true fan-in lies at 1.1e-6 to
+#: 2.0e-6 x max|g| on the CPU (2 and 4 layers); TF32 products would
+#: put it near 1e-3
+LM_F64_GRAD_SHARE = 1e-4
+
+
+def fan_in_params(mod, args, device):
+    """The LM example's weights as its ``run`` draws them (the port's
+    ``init_params``, seed 0), the attention projections then scaled to
+    the fan-in each has: wq, wk and wv to std d^-1/2, wo to (H dh)^-1/2.
+    ``init_params`` takes a 4-D weight's second-to-last axis as its
+    fan-in, as the JAX package's ``dense_init`` does: H, Hk and dh
+    (:func:`attention_saturation`)."""
+    cfg = mod.model_config(args)
+    params = mod.tf.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    lay, d = params["layers"], cfg.d_model
+    for name, drawn in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                        ("wv", cfg.n_kv_heads)):
+        lay[name] = lay[name] * math.sqrt(drawn / d)
+    lay["wo"] = lay["wo"] * math.sqrt(1 / cfg.n_heads)
+    return params
+
+
+def attention_saturation(params, tokens, cfg) -> dict:
+    """How far from a spread softmax each layer's attention starts, on
+    the first batch: the std of the causal scores q.k / sqrt(dh) and the
+    mean of each query's largest weight, by layer (a serving forward
+    with the plain attention, no grad)."""
+    from repro_torch.models import transformer as tf
+
+    std, top = [], []
+
+    def attend(q, k, v, cfg, *, causal, q_offset=0):
+        kk = k[:, :q_offset + q.shape[1]].float()
+        kk = kk.repeat_interleave(q.shape[2] // kk.shape[2], dim=2)
+        s = torch.einsum("bshd,bthd->bhst", q.float(), kk) \
+            / math.sqrt(q.shape[-1])
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril(q_offset)
+        std.append(float(s[..., mask].std()))
+        top.append(float(s.masked_fill(~mask, -math.inf).softmax(-1)
+                         .amax(-1).mean()))
+        return tf.attention_plain(q, k, v, cfg, causal=causal,
+                                  q_offset=q_offset)
+
+    with torch.no_grad():
+        tf.prefill(params, tokens, cfg, attend=attend)
+    return {"score_std": std, "max_weight": top}
+
+
+def lm_checks(label: str, args, r: dict, first: dict, device,
+              asserted: bool) -> dict:
+    """The LM example's run: every loss finite; the first step's loss
+    and gradients in f32 against float64 on the same device, params and
+    batch (the dense LM's training path runs no kernel, so a plain path
+    would be the same code); how saturated the attention starts
+    (:func:`attention_saturation`); the printed claim
+    (:func:`check_lm_learns`).  ``asserted``: the first step within
+    ``TRAIN_LOSS_RTOL`` / ``LM_F64_GRAD_SHARE`` of float64 and the claim
+    held, else both reported."""
+    from repro_torch.models import transformer as tf
+
+    params, tokens, labels, cfg = first["args"]
+    assert np.isfinite(r["losses"]).all(), \
+        f"{label}: a non-finite loss in {r['losses']}"
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    loss32, g32 = loss_and_grads(
+        lambda p: tf.loss_fn(p, tokens, labels, cfg), params)
+    loss64, g64 = loss_and_grads(
+        lambda p: tf.loss_fn(p, tokens, labels, cfg64),
+        tree_map(torch.Tensor.double, params))
+    share = {k: float((g32[k].double() - g).abs().max() / g.abs().max())
+             for k, g in g64.items() if g.numel() and g.abs().max()}
+    out = {"f64": {"loss": loss32, "loss64": loss64,
+                   "printed_loss_rel_err": abs(r["losses"][0] - loss64)
+                   / abs(loss64), "grad_share": share},
+           "attention": attention_saturation(params, tokens, cfg)}
+    window = 20
+    if not asserted:
+        return {**out, "ln_vocab": math.log(r["vocab"]),
+                "first_mean": float(np.mean(r["losses"][:window])),
+                "last_mean": float(np.mean(r["losses"][-window:]))}
+    check_first_loss(label, r["losses"][0], loss64)
+    worst = max(share, key=share.get)
+    assert share[worst] <= LM_F64_GRAD_SHARE, \
+        (f"{label}: first-step grad {worst} {share[worst]:.3g} x max|g| "
+         f"from float64, beyond {LM_F64_GRAD_SHARE}")
+    return {**out, **check_lm_learns(r["losses"], r["vocab"], window)}
+
+
+def quickstart_line(x: dict) -> str:
+    st = x["stream"]
+    loads = "; ".join(
+        f"{fmt} {f['bytes_written']} B, direct "
+        f"{f['direct']['s'] * 1e3:.1f} ms, PG-Fuse "
+        f"{f['pgfuse']['s'] * 1e3:.1f} ms ({f['pgfuse']['underlying_reads']}"
+        f" reads, {f['pgfuse']['hits']} hits)"
+        for fmt, f in x["formats"].items())
+    return (f"{x['vertices']} vertices, {x['edges']} edges; {loads}; "
+            f"async {x['async']['partitions']} partitions, "
+            f"{x['async']['edges']} edges; stream {st['partitions']} "
+            f"partitions [{st['decode_mode']} decode], "
+            f"{st['underlying_reads']} storage reads (+"
+            f"{st['readahead_blocks']} readahead), {st['bytes_h2d']} B H2D, "
+            f"{st['host_decode_bytes']} host-decoded bytes, "
+            f"{st['decode_edges_per_s']:.4g} edges/s decode; streamed CSR "
+            f"equal to the generated one")
+
+
+def gnn_line(x: dict) -> str:
+    c = x["checks"]
+    p = c["parity"]
+    where = ("engine " + ", ".join(
+        f"{key} {x['engine'][key]}" for key in (
+            "batches", "device_batches", "blocks_touched"))
+        if "engine" in x else "hosts " + "; ".join(
+            f"{h['partitions']} partitions {h['edges']} edges "
+            f"{h['bytes_h2d']} B H2D" for h in x["hosts"]))
+    return (f"{len(x['losses'])} steps, {x['steps_per_s']:.2f} steps/s; "
+            f"{where}; loss mean first 10 {c['first_mean']:.4f} -> last 10 "
+            f"{c['last_mean']:.4f}; first step: printed loss "
+            f"{x['losses'][0]:.7f}, kernel path {p['loss']:.7f}, plain "
+            f"{p['plain_loss']:.7f} (rel err {p['loss_rel_err']:.3g} <= "
+            f"{TRAIN_LOSS_RTOL}), grads within rtol {TRAIN_GRAD_TOL[0]}, atol "
+            f"{TRAIN_GRAD_TOL[1]} x max|g| (max abs err " + ", ".join(
+                f"{name} {v:.3g}" for name, v in p["grad_max_abs_err"].items())
+            + ")")
+
+
+def din_line(x: dict) -> str:
+    c = x["checks"]
+    return (f"b = {x['b']}, p50 {x['p50_ms']:.3f} ms, p99 "
+            f"{x['p99_ms']:.3f} ms (requests 3..), {x['wire_bytes']} wire "
+            f"bytes; request 0's {c['rows_checked']} scores within {DIN_TOL} "
+            f"of the plain CPU path (max abs err {c['max_abs_err']:.3g})")
+
+
+def lm_line(x: dict, asserted: bool) -> str:
+    c = x["checks"]
+    f = c["f64"]
+    a = c["attention"]
+    tokens = x["args"]["batch"] * x["args"]["seq"]
+    claim = "below" if c["last_mean"] < c["ln_vocab"] else "NOT below"
+    how = "asserted" if asserted else "reported"
+    return (f"{x['n_params']} parameters, {len(x['losses'])} steps of "
+            f"{tokens} tokens, {x['tokens_per_s']:.1f} tokens/s "
+            f"({x['tokens_per_s'] / tokens:.2f} steps/s); loss mean first 20 "
+            f"{c['first_mean']:.4f} -> last 20 {c['last_mean']:.4f}, {claim} "
+            f"ln(vocab) {c['ln_vocab']:.4f} ({how}); first step against "
+            f"float64 ({how}): printed loss {x['losses'][0]:.7f}, f32 "
+            f"{f['loss']:.7f}, float64 {f['loss64']:.7f} (printed rel err "
+            f"{f['printed_loss_rel_err']:.3g}), grads at most "
+            f"{max(f['grad_share'].values()):.3g} x max|g| from float64; "
+            f"attention at the start: score std by layer "
+            + ", ".join(f"{v:.3g}" for v in a["score_std"])
+            + "; mean top weight " + ", ".join(f"{v:.3f}"
+                                               for v in a["max_weight"])
+            + f"; PG-Fuse {x['pgfuse']['underlying_reads']} underlying reads "
+            f"/ {x['pgfuse']['cache_hits']} hits; {x['workdir_bytes']} B in "
+            f"its workdir (the shard and its checkpoints)")
+
+
+class ExampleRun(NamedTuple):
+    """One run of ``[examples]``: ``example``, the file under
+    ``examples/``, with command line ``argv`` (and ``params(mod, args,
+    device)`` passed as ``run``'s ``params=``, else the example draws its
+    own); ``recorded``, the library function (module, attribute) whose
+    first call's arguments the checks take; ``launches(args, r, first)``,
+    the kernels the run makes on the card (:func:`example_launches`);
+    ``checks(label, args, r, first, device)``; ``line(x)``, its log
+    line's middle part."""
+    label: str
+    example: str
+    argv: tuple
+    line: Callable
+    launches: Callable = no_launches
+    checks: Callable = lambda label, args, r, first, device: {}
+    recorded: Optional[tuple] = None
+    params: Optional[Callable] = None
+
+
+_GNN = dict(example="train_gnn_from_compbin_torch.py", line=gnn_line,
+            launches=gnn_launches, checks=gnn_checks,
+            recorded=("repro_torch.models.gnn.gcn", "loss_fn"))
+_LM = dict(example="train_lm_packed_tokens_torch.py",
+           recorded=("repro_torch.models.transformer", "loss_fn"))
+
+#: ``[examples]``' runs.  The quickstart at its default size, then the
+#: paper's path at rmat(20, 16) (1,048,576 vertices, ~16.5 M edges
+#: streamed into HBM through K1); the GNN example's two regimes at its
+#: defaults (60 steps, 2 hosts); DIN over the 10M-item catalog its
+#: docstring describes (3 bytes an id); lm-100m, 8 x 256 tokens a step,
+#: f32, a checkpoint every 100 steps, as the example draws it (its
+#: attention saturated from the first step: its printed claim is
+#: reported), then from :func:`fan_in_params`, where the claim and the
+#: first step against float64 are asserted.  100 steps each: the
+#: schedule the example derives from ``--steps``
+EXAMPLE_RUNS = (
+    ExampleRun("quickstart", "quickstart_torch.py", ("--scale", "14"),
+               quickstart_line, quickstart_launches),
+    ExampleRun("quickstart_compbin", "quickstart_torch.py",
+               ("--format", "compbin", "--scale", "20"), quickstart_line,
+               quickstart_launches),
+    ExampleRun("gnn", argv=(), **_GNN),
+    ExampleRun("gnn_sampled", argv=("--sampled",), **_GNN),
+    ExampleRun("din", "serve_din_requests_torch.py",
+               ("--items", "10000000", "--requests", "20", "--batch", "64"),
+               din_line, checks=din_checks,
+               recorded=("repro_torch.models.recsys.din", "forward")),
+    ExampleRun("lm", argv=("--steps", "100"),
+               line=functools.partial(lm_line, asserted=False),
+               checks=functools.partial(lm_checks, asserted=False), **_LM),
+    ExampleRun("lm_fan_in", argv=("--steps", "100"),
+               line=functools.partial(lm_line, asserted=True),
+               checks=functools.partial(lm_checks, asserted=True),
+               params=fan_in_params, **_LM),
+)
+
+
+def load_example(name: str):
+    """``examples/<name>`` as a module: its ``build_parser`` and ``run``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name[:-3], os.path.join(_HERE, "examples", name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def first_call(module, name: str, store: dict):
+    """The arguments of the first call of ``module.<name>`` kept in
+    ``store["args"]``, tensors detached (a step makes new params and
+    leaves the ones it was given as they were)."""
+    fn = getattr(module, name)
+
+    def detached(x):
+        if isinstance(x, dict):
+            return {k: detached(v) for k, v in x.items()}
+        return x.detach() if isinstance(x, torch.Tensor) else x
+
+    def recording(*args):
+        if "args" not in store:
+            store["args"] = tuple(detached(a) for a in args)
+        return fn(*args)
+
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_examples(device, workdir: str, runs=EXAMPLE_RUNS) -> dict:
+    """``[examples]``: each of ``runs`` (``EXAMPLE_RUNS``) through its
+    example's ``run(args, device=)`` in this process, every kernel count
+    zeroed just before and read just after (held by
+    :func:`check_example_launches`), the example's own checks raising
+    where it asserts (the quickstart's streamed CSR against the generated
+    one), then the run's ``checks``.  Returns each run's numbers, its
+    wall time, its launches and its checks."""
+    import importlib
+
+    on_gpu = torch.device(device).type == "cuda"
+    out = {}
+    for run in runs:
+        mod = load_example(run.example)
+        args = mod.build_parser().parse_args(list(run.argv))
+        if hasattr(args, "workdir"):
+            args.workdir = os.path.join(workdir, "examples", run.label)
+        kw = ({} if run.params is None
+              else {"params": run.params(mod, args, device)})
+        first = {}
+        hook = (first_call(importlib.import_module(run.recorded[0]),
+                           run.recorded[1], first)
+                if run.recorded else contextlib.nullcontext())
+        compbin_decode.launches = segment_sum.launches = 0
+        segment_sum.grad_launches = flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with hook:
+            r = mod.run(args, device=device, **kw)
+        if on_gpu:
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        check_example_launches(run.label, launches,
+                               example_launches(run, args, r, first, on_gpu))
+        t1 = time.perf_counter()
+        checks = run.checks(run.label, args, r, first, device)
+        out[run.label] = {"example": run.example, "argv": list(run.argv),
+                          "args": vars(args), "wall_s": wall,
+                          "launches": launches, "checks": checks,
+                          "checks_s": time.perf_counter() - t1,
+                          **{k: v for k, v in r.items() if k != "scores"}}
+        if hasattr(args, "workdir"):
+            out[run.label]["workdir_bytes"] = dir_bytes(args.workdir)
+        del r, first, kw
+        gc.collect()
+        if on_gpu:
+            torch.cuda.empty_cache()
+    out_main = {k: sum(x["launches"][k] for x in out.values())
+                for k in ("k1", "k2", "k2_grad", "k3")}
+    return {"runs": out, "main_launches": out_main}
+
+
+def log_example(run: ExampleRun, x: dict) -> None:
+    """One line of ``[examples]`` for ``run``: what the example printed,
+    its wall time, its launches and its checks."""
+    k = x["launches"]
+    log(f"[examples] {run.label} ({run.example} {' '.join(run.argv)}"
+        f"{', from ' + run.params.__name__ if run.params else ''}): wall "
+        f"{x['wall_s']:.2f} s (checks {x['checks_s']:.2f} s); "
+        + run.line(x) + f"; launches K1 {k['k1']}, K2 {k['k2']}, k2_grad "
+        f"{k['k2_grad']}, K3 {k['k3']}")
+
+
+#: the fresh-process count of each kernel in ``[examples]``
+EXAMPLE_FRESH = {"k1": "k1_quickstart_partition", "k2": "k2_gnn_layer",
+                 "k2_grad": "k2_grad_gnn_layer"}
+
+
+def examples_slice(device, workdir: str) -> dict:
+    """``main``'s ``[examples]`` phase, also run alone to rehearse it:
+    :func:`phase_examples`, then the CUDA launches per call of K1 at the
+    streamed partition of the quickstart's rmat(20, 16) and of K2 and its
+    backward at the GNN example's full-graph layer, counted in a fresh
+    process (:func:`fresh_k2_launches`), each > 0."""
+    from repro_torch.core.compbin import bytes_per_vertex
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = phase_examples(device, workdir)
+    r["wall_s"] = time.perf_counter() - t0
+    runs = r["runs"]
+    ids, n, d = runs["gnn"]["checks"]["k2_case"]
+    for x in runs.values():
+        x["checks"].pop("k2_case", None)
+    qs = runs["quickstart_compbin"]
+    k1_shape = (stream_bucket_ids(-(-qs["edges"]
+                                    // qs["stream"]["partitions"])),
+                bytes_per_vertex(qs["vertices"]))
+    fresh = fresh_k2_launches(
+        {EXAMPLE_FRESH["k2"]: (ids, n, d, False),
+         EXAMPLE_FRESH["k2_grad"]: (ids, n, d, True)}, workdir,
+        k1_cases={EXAMPLE_FRESH["k1"]: k1_shape})
+    for label, got in fresh.items():
+        assert got is not None and got[0] > 0, (label, got)
+    r["fresh_launches_per_call"] = fresh
+    shutil.rmtree(os.path.join(workdir, "examples"), ignore_errors=True)
+    for run in EXAMPLE_RUNS:
+        log_example(run, runs[run.label])
+    log(f"[examples] CUDA launches per call (profiler, {TRACE_CALLS} calls "
+        f"in a fresh process): K1 at b={k1_shape[1]} n={k1_shape[0]} (a "
+        f"streamed partition of rmat(20, 16)) "
+        f"{fresh['k1_quickstart_partition']}; "
+        f"K2 at f32[{ids.numel()},{d}] -> [{n},{d}] (the GNN example's "
+        f"full-graph layer) {fresh['k2_gnn_layer']}; k2_grad at the same "
+        f"{fresh['k2_grad_gnn_layer']} (each: the kernel's own, all, "
+        f"device ms)")
+    log(f"[examples] main-path launches: " + ", ".join(
+        f"{k} {v}" for k, v in r["main_launches"].items())
+        + f"; phase wall {r['wall_s']:.1f} s")
+    return r
+
+
+def examples_kernel_entry(r: dict, key: str) -> dict:
+    """The ``examples`` entry of a kernel's item in the kernels line: its
+    launches by run of ``[examples]`` and per call in a fresh process."""
+    return {"launches": {label: x["launches"][key]
+                         for label, x in r["runs"].items()},
+            "cuda_launches_per_call": r["fresh_launches_per_call"][
+                EXAMPLE_FRESH[key]]}
+
+
+# ---------------------------------------------------------------------------
 # [compile]: the graph compiler on the load file, then a cold engine on
 # the compiled file answering the hot-set trace
 # ---------------------------------------------------------------------------
@@ -6225,6 +6729,14 @@ def main(argv=None) -> int:
         cl = cells_slice(device, workdir)
         cl_k = cl["main_launches"]
 
+        # phase 15i: [examples] the four examples of examples/*_torch.py
+        # run in this process at their own sizes, every count zeroed just
+        # before each run and read just after (phase_examples); then K1's,
+        # K2's and its backward's launches per call at their shapes in a
+        # fresh process
+        ex = examples_slice(device, workdir)
+        ex_k = ex["main_launches"]
+
         # phase 16: [compile] the load file through the graph compiler,
         # the hot-set trace through a cold engine on the compiled file;
         # K1's count zeroed just before and read just after
@@ -6255,6 +6767,7 @@ def main(argv=None) -> int:
                    segment_sum_gnn2=k2n, moe=moe, lm_train=lmt,
                    segment_sum_moe=k2m, flash_attention_moe=k3m,
                    din=din_r, kernel_din_request=k1d, cells=cl,
+                   examples=ex,
                    segment_sum_din_table_grad=k2d,
                    segment_sum_full_graph=k2f,
                    segment_sum_backward=k2g, compile=comp,
@@ -6278,7 +6791,8 @@ def main(argv=None) -> int:
         "name": "compbin_decode", "route": "cuda", "source": CUDA_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": (main_path_launches + hot_k1 + trav_k1 + gnn_k1
-                     + train_k1 + g2_k1 + din_k1 + cl_k["k1"] + comp_k1),
+                     + train_k1 + g2_k1 + din_k1 + cl_k["k1"] + ex_k["k1"]
+                     + comp_k1),
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -6289,10 +6803,12 @@ def main(argv=None) -> int:
                             "ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "max_abs_err")}},
         "cells": cells_kernel_entry(cl, "compbin_decode"),
+        "examples": examples_kernel_entry(ex, "k1"),
     }, {
         "name": "segment_sum", "route": "cuda", "source": K2_CUDA_SOURCE,
         "replaces": K2_TPU_KERNEL,
-        "launches": gnn_k2 + train_k2 + g2_k2 + moe_k2 + lmt_k2 + cl_k["k2"],
+        "launches": (gnn_k2 + train_k2 + g2_k2 + moe_k2 + lmt_k2 + cl_k["k2"]
+                     + ex_k["k2"]),
         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
         "ms": k2["layer0"]["ms"], "plain_ms": k2["layer0"]["plain_ms"],
         "bound_ms": k2["layer0"]["bound_ms"],
@@ -6334,12 +6850,14 @@ def main(argv=None) -> int:
             "plain_ms", "library_ms", "autograd_ms", "bound_ms", "bound_by",
             "gb_per_s")} | {m: v["ms"] for m, v in k2d["designs"].items()},
         "cells": cells_kernel_entry(cl, "segment_sum"),
+        "examples": examples_kernel_entry(ex, "k2"),
     }, {
         "name": "segment_sum_backward", "route": "cuda",
         "source": K2_CUDA_SOURCE, "replaces": K2_TPU_KERNEL,
         "note": ("K2's backward (a gather); the JAX package trains through "
                  "XLA's segment_sum and has no backward kernel"),
-        "launches": train_k2b + g2_k2b + lmt_k2b + cl_k["k2_grad"],
+        "launches": (train_k2b + g2_k2b + lmt_k2b + cl_k["k2_grad"]
+                     + ex_k["k2_grad"]),
         "max_abs_err": 0.0,
         "ms": k2g["full_graph"]["ms"],
         "plain_ms": k2g["full_graph"]["plain_ms"],
@@ -6368,9 +6886,11 @@ def main(argv=None) -> int:
             "library_call", "library", "cuda_launches_per_call")}
             for label, r in k2m.items() if "backward" in r},
         "cells": cells_kernel_entry(cl, "segment_sum_backward"),
+        "examples": examples_kernel_entry(ex, "k2_grad"),
     }, {
         "name": "flash_attention", "route": "cuda", "source": K3_CUDA_SOURCE,
-        "replaces": K3_TPU_KERNEL, "launches": lm_k3 + moe_k3 + cl_k["k3"],
+        "replaces": K3_TPU_KERNEL,
+        "launches": lm_k3 + moe_k3 + cl_k["k3"] + ex_k["k3"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in [*k3.values(), *k3m.values()]),
         "ms": k3["prefill"]["ms"], "plain_ms": k3["prefill"]["plain_ms"],

@@ -885,3 +885,27 @@ def test_dry_run_estimate_bounds_a_cells_memory(cuda, smoke):
     r = smoke.run_cell_on_device(cell, rec, cuda, reps=1)
     assert 0.999 <= r["estimate_over_measured"] <= 1.05
     assert r["main_launches"] == {"k1": 0, "k2": 0, "k2_grad": 0, "k3": 0}
+
+
+def test_examples_run_on_the_card(cuda, smoke, tmp_path):
+    """``[examples]``' runner on the card at a few steps: the quickstart
+    streams its graph through K1 (once a partition), the GNN example's
+    two regimes take K1, K2 and its backward as ``example_launches``
+    reckons them with the first step held to the plain path and the loss
+    falling, DIN's first request within ``DIN_TOL`` of the plain CPU
+    path."""
+    argv = {"quickstart_compbin": ("--format", "compbin", "--scale", "12"),
+            "gnn": ("--steps", "20"),
+            "gnn_sampled": ("--sampled", "--steps", "20"),
+            "din": ("--items", "1000", "--requests", "3", "--batch", "8")}
+    runs = tuple(run._replace(argv=argv[run.label])
+                 for run in smoke.EXAMPLE_RUNS if run.label in argv)
+    r = smoke.phase_examples(cuda, str(tmp_path), runs=runs)["runs"]
+    assert r["quickstart_compbin"]["launches"]["k1"] == \
+        r["quickstart_compbin"]["stream"]["partitions"] > 0
+    for label in ("gnn", "gnn_sampled"):
+        k = r[label]["launches"]
+        assert k["k1"] > 0 and k["k2"] == 20 * 3 and k["k2_grad"] == 20
+        assert r[label]["checks"]["parity"]["loss_rel_err"] <= \
+            smoke.TRAIN_LOSS_RTOL
+    assert r["din"]["checks"]["max_abs_err"] <= smoke.DIN_TOL

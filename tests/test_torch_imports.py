@@ -94,6 +94,38 @@ def test_no_source_file_of_the_port_names_jax_imports():
             assert needle not in text, (path, needle)
 
 
+def test_the_port_examples_import_neither_jax_nor_repro():
+    """The four ``examples/*_torch.py`` files, imported (not run) in a
+    fresh process, pull in neither ``jax`` nor the JAX package; their
+    sources name neither."""
+    examples = sorted((SRC.parent / "examples").glob("*_torch.py"))
+    assert [p.name for p in examples] == [
+        "quickstart_torch.py", "serve_din_requests_torch.py",
+        "train_gnn_from_compbin_torch.py", "train_lm_packed_tokens_torch.py"]
+    code = (
+        "import importlib.util, sys\n"
+        f"paths = {[str(p) for p in examples]!r}\n"
+        "for i, path in enumerate(paths):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('imported', len(paths))\n")
+    out = subprocess.run([sys.executable, "-c", code], timeout=120,
+                         capture_output=True, text=True,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("imported 4")
+    for path in examples:
+        text = path.read_text()
+        for needle in ("import jax", "from jax", "import repro\n",
+                       "from repro ", "from repro.", "ml_dtypes"):
+            assert needle not in text, (path, needle)
+
+
 def test_device_none_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None resolves to it")
