@@ -10,11 +10,17 @@ attributing the request's (virtual-clock) time to tiers:
 
 ``request``  the traversal service's per-request envelope
 ``route``    scatter-gather routing in the sharded service
-``gather``   engine micro-batch machinery (dedup, range merge, scatter)
+``gather``   the engine's micro-batch (``query.batch``: dedup, scatter,
+             result assembly), its fetch (``query.offsets`` /
+             ``query.packed``: run merging and PG-Fuse's cached-block
+             assembly), the hot-set tier (``query.hotset.lookup`` /
+             ``.observe`` / ``.fill``) and the tier's prefetch
+             (``query.prefetch``)
 ``storage``  PG-Fuse underlying reads (cache misses only — hits never
              touch storage and correctly attribute nothing here)
-``decode``   eq. (1), host or device
-``h2d``      packed-byte transfer accounting on the device path
+``decode``   eq. (1), host or device (``query.decode``, whose
+             ``bytes_h2d`` attribute carries the device arm's copy)
+``h2d``      the GNN server's feature copy (``gnn.h2d``)
 
 Design constraints, all load-bearing:
 
@@ -40,16 +46,27 @@ Design constraints, all load-bearing:
 Span **events** mark point occurrences inside a span: PG-Fuse transient
 retries (``"retry"``), replica failovers (``"reroute"``), admission
 sheds (``"shed"``), micro-batch window closes (``"window_close"``,
-with the :data:`repro_torch.query.window.CLOSE_REASONS` reason), hot-set
-lookups/fills.  Event counts reconcile exactly with the stats counters
-they shadow (``PGFuseStats.retried_reads``, ``RouterStats.reroutes``,
+with the :data:`repro_torch.query.window.CLOSE_REASONS` reason).  Event
+counts reconcile exactly with the stats counters they shadow
+(``PGFuseStats.retried_reads``, ``RouterStats.reroutes``,
 ``TraversalStats.shed``, ``QueryStats.close_reasons``) — the
 conservation cross-checks ``repro_torch.obs.report`` verifies and the
 differential fuzzers assert.
+
+**Profiler ranges.**  While a ``torch.profiler`` session is recording,
+every span a :class:`Tracer` records also opens a
+``torch.profiler.record_function`` range of the same name on the same
+thread, so the span appears in the profiler's trace (a
+``user_annotation`` event) on the clock of the device operations, and
+an idle gap of the device can be named by the span that was open.  A
+profiler records another thread's ranges only when it was started with
+``_ExperimentalConfig(profile_all_threads=True)``.  Suppressed spans
+and :data:`NULL_TRACER` emit nothing.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from typing import Callable, List, Optional, Tuple
@@ -148,20 +165,36 @@ class TraceContext:
         self.suppress = 0
 
 
+def _profiler_range(name: str):
+    """An open ``record_function`` range named ``name`` while a
+    ``torch.profiler`` session is recording, else None.  Reads
+    PyTorch's own process-wide flag; a process that never imported
+    ``torch.autograd.profiler`` runs no profiler."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _SpanHandle:
     """The live handle a ``with tracer.span(...) as sp:`` block holds."""
 
-    __slots__ = ("_tracer", "span")
+    __slots__ = ("_tracer", "span", "_range")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self._tracer = tracer
         self.span = span
+        self._range = _profiler_range(span.name)
 
     def __enter__(self) -> "_SpanHandle":
         return self
 
     def __exit__(self, *exc) -> bool:
         self._tracer._finish(self.span)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         return False
 
     def event(self, name: str, **attrs) -> None:

@@ -31,9 +31,10 @@ The engine turns that property into a serving-grade query path:
   (:func:`repro_torch.core.policy.choose_hotset_admission` — pin hubs,
   bypass the cold tail), so a hot hit touches neither storage nor the
   PG-Fuse block cache nor the decoder, and trace-driven prefetch fetches
-  predicted-hot vertices after each batch, outside any request's
-  latency — hot answers are byte-identical to every decode path (the
-  differential tests assert it);
+  predicted-hot vertices after each batch (outside the batch's latency
+  in :class:`QueryStats`, but before the batch's futures resolve) — hot
+  answers are byte-identical to every decode path (the differential
+  tests assert it);
 * :class:`QueryStats` accounts every request: virtual-clock latency
   percentiles (p50/p99 under an injectable ``clock``, so benchmarks
   measure the *request pattern* against a simulated storage clock, not
@@ -426,31 +427,31 @@ class NeighborQueryEngine:
         LogCSR's bit-packed one take the same path here.
         """
         h = self._header
-        gap_vertices = h.offsets_gap_vertices(self.merge_gap)
-        runs: List[tuple] = []       # (v_start, v_end) inclusive vertex runs
-        for v in uniq:
-            v = int(v)
-            if runs and v - runs[-1][1] <= gap_vertices:
-                runs[-1] = (runs[-1][0], v)
-            else:
-                runs.append((v, v))
-        out = np.empty((len(uniq), 2), dtype=np.int64)
-        byte_ranges = []
-        n_reads = 0
-        i = 0
-        for a, z in runs:
-            start, nbytes = h.offsets_span(a, z)   # offsets[a ..= z+1]
-            raw = self._read_range(f, start, nbytes)
-            words = h.decode_offsets(raw, a, z)
-            n_reads += 1
-            byte_ranges.append((start, start + nbytes))
-            while i < len(uniq) and a <= int(uniq[i]) <= z:
-                lo = int(uniq[i]) - a
-                out[i, 0] = words[lo]
-                out[i, 1] = words[lo + 1]
-                i += 1
-        assert i == len(uniq)
-        return out, n_reads, byte_ranges
+        with self._tracer.span("query.offsets", tier="gather") as sp:
+            gap_vertices = h.offsets_gap_vertices(self.merge_gap)
+            runs: List[tuple] = []   # (v_start, v_end) inclusive vertex runs
+            for v in uniq:
+                v = int(v)
+                if runs and v - runs[-1][1] <= gap_vertices:
+                    runs[-1] = (runs[-1][0], v)
+                else:
+                    runs.append((v, v))
+            out = np.empty((len(uniq), 2), dtype=np.int64)
+            byte_ranges = []
+            i = 0
+            for a, z in runs:
+                start, nbytes = h.offsets_span(a, z)   # offsets[a ..= z+1]
+                raw = self._read_range(f, start, nbytes)
+                words = h.decode_offsets(raw, a, z)
+                byte_ranges.append((start, start + nbytes))
+                while i < len(uniq) and a <= int(uniq[i]) <= z:
+                    lo = int(uniq[i]) - a
+                    out[i, 0] = words[lo]
+                    out[i, 1] = words[lo + 1]
+                    i += 1
+            assert i == len(uniq)
+            sp.set(reads=len(runs))
+        return out, len(runs), byte_ranges
 
     def _gather_packed(self, spans: np.ndarray, f):
         """Packed neighbor bytes for each (o0, o1) edge span, via merged
@@ -458,24 +459,27 @@ class NeighborQueryEngine:
         uint8 arrays, n_reads, needed byte ranges)."""
         h = self._header
         b = self._b
-        need = []
-        for k, (o0, o1) in enumerate(spans):
-            if o1 > o0:
-                s = h.neighbors_start + b * int(o0)
-                need.append((s, s + b * int(o1 - o0), k))
-        merged = _merge_ranges([(s, e) for s, e, _ in need], self.merge_gap)
-        bufs = {}
-        for s, e in merged:
-            raw = self._read_range(f, s, e - s)
-            bufs[s] = (np.frombuffer(raw, dtype=np.uint8), e)
-        starts = sorted(bufs)
-        out: List[np.ndarray] = [np.zeros(0, np.uint8)] * len(spans)
-        for s, e, k in need:
-            # merged run containing this span
-            j = int(np.searchsorted(starts, s, side="right")) - 1
-            base = starts[j]
-            buf, _ = bufs[base]
-            out[k] = buf[s - base: e - base]
+        with self._tracer.span("query.packed", tier="gather") as sp:
+            need = []
+            for k, (o0, o1) in enumerate(spans):
+                if o1 > o0:
+                    s = h.neighbors_start + b * int(o0)
+                    need.append((s, s + b * int(o1 - o0), k))
+            merged = _merge_ranges([(s, e) for s, e, _ in need],
+                                   self.merge_gap)
+            bufs = {}
+            for s, e in merged:
+                raw = self._read_range(f, s, e - s)
+                bufs[s] = (np.frombuffer(raw, dtype=np.uint8), e)
+            starts = sorted(bufs)
+            out: List[np.ndarray] = [np.zeros(0, np.uint8)] * len(spans)
+            for s, e, k in need:
+                # merged run containing this span
+                j = int(np.searchsorted(starts, s, side="right")) - 1
+                base = starts[j]
+                buf, _ = bufs[base]
+                out[k] = buf[s - base: e - base]
+            sp.set(reads=len(merged))
         return out, len(merged), [(s, e) for s, e, _ in need]
 
     def _open(self):
@@ -528,15 +532,18 @@ class NeighborQueryEngine:
         return [a.copy() for a in np.split(ids, np.cumsum(lens)[:-1])], \
             nbytes_h2d
 
-    def neighbors_batch(self, vertices, *,
-                        _close_reason: str = "direct") -> List[np.ndarray]:
+    def neighbors_batch(self, vertices, *, _close_reason: str = "direct",
+                        _t_submit: Sequence[float] = ()
+                        ) -> List[np.ndarray]:
         """Adjacency lists for ``vertices`` (duplicates fine), in order.
 
         The whole batch is deduplicated and fetched with coalesced reads;
         each returned array is the full (decoded) neighbor list of the
         corresponding input vertex.  ``_close_reason`` is the engine's
         internal accounting of WHY this batch executed (the async worker
-        passes the window-close reason; direct calls record "direct").
+        passes the window-close reason; direct calls record "direct"),
+        ``_t_submit`` the engine-clock submit times of the requests the
+        batch serves (the span's ``queued_s``).
         """
         vertices = np.asarray(vertices, dtype=np.int64).ravel()
         if vertices.size == 0:
@@ -546,20 +553,27 @@ class NeighborQueryEngine:
                 f"vertex ids must be in [0, {self.n_vertices}); got "
                 f"[{vertices.min()}, {vertices.max()}]")
         t0 = self._clock()
-        # the gather span covers the whole coalesced fetch: PG-Fuse read
-        # spans (tier=storage) and the decode span nest inside it, so
-        # its SELF time is the pure batching machinery
-        with self._tracer.span("query.batch", tier="gather",
-                               vertices=int(vertices.size)) as bsp:
+        tracer = self._tracer
+        # the gather span covers the whole coalesced fetch: its fetch and
+        # hot-set children share its tier, the PG-Fuse read spans
+        # (tier=storage) and the decode span nest inside, so its SELF
+        # time is the dedup, scatter and result assembly
+        with tracer.span("query.batch", tier="gather",
+                         vertices=int(vertices.size),
+                         queued_s=[t0 - t for t in _t_submit]) as bsp:
             uniq, inverse = np.unique(vertices, return_inverse=True)
             # tier-3 lookup FIRST: a hot vertex touches neither storage
             # nor the PG-Fuse block cache nor the decoder below
             hot: dict = {}
             if self._hotset is not None:
-                hot = self._hotset.lookup(uniq)
-                self._hotset.observe(uniq)
-                bsp.event("hotset_lookup", hits=len(hot),
-                          misses=int(len(uniq) - len(hot)))
+                with tracer.span("query.hotset.lookup",
+                                 tier="gather") as hsp:
+                    hot = self._hotset.lookup(uniq)
+                    hsp.set(hits=len(hot), misses=int(len(uniq) - len(hot)),
+                            copies=len(hot) if self._hotset.plan.place
+                            == "device" else 0)
+                with tracer.span("query.hotset.observe", tier="gather"):
+                    self._hotset.observe(uniq)
             if hot:
                 cold = uniq[np.fromiter((int(v) not in hot for v in uniq),
                                         bool, len(uniq))]
@@ -586,31 +600,19 @@ class NeighborQueryEngine:
                 n_edges = int((spans[:, 1] - spans[:, 0]).sum()) \
                     if len(spans) else 0
                 plan = self._decode_plan(n_edges)
-                if plan.device:
-                    with self._tracer.span("query.decode", tier="decode",
-                                           mode="device",
-                                           edges=n_edges) as dsp:
-                        decoded_cold, bytes_h2d = \
-                            self._decode_device(packed)
-                        # zero-width marker carrying the shipped bytes:
-                        # H2D cost is folded into the device decode
-                        # under the virtual clock, but the tier stays
-                        # visible in the attribution
-                        with self._tracer.span("query.h2d",
-                                               tier="h2d") as hsp:
-                            hsp.set(bytes=int(bytes_h2d))
-                else:
-                    with self._tracer.span("query.decode", tier="decode",
-                                           mode="host", edges=n_edges):
-                        decoded_cold, bytes_h2d = self._decode_host(packed)
+                decode = self._decode_device if plan.device \
+                    else self._decode_host
+                with tracer.span("query.decode", tier="decode",
+                                 mode="device" if plan.device else "host",
+                                 edges=n_edges) as dsp:
+                    decoded_cold, bytes_h2d = decode(packed)
+                    dsp.set(bytes_h2d=int(bytes_h2d))
                 on_device = int(plan.device)
             if self._hotset is not None:
                 # fills are free for the caller: the decode already
                 # happened (admission keeps the cold tail out — see
                 # hotset.fill)
-                for v, d in zip(cold, decoded_cold):
-                    self._hotset.fill(int(v), d)
-                bsp.event("hotset_fill", offered=int(cold.size))
+                self._hotset_fill(cold, decoded_cold)
             if hot:
                 it = iter(decoded_cold)
                 decoded = [hot[int(v)] if int(v) in hot else next(it)
@@ -637,11 +639,31 @@ class NeighborQueryEngine:
                 st.latencies.add(latency)
             bsp.event("window_close", reason=_close_reason)
         if self._hotset is not None:
-            # trace-driven prefetch AFTER the request is answered and its
-            # latency folded: predicted-hot vertices warm the tier on the
-            # engine's time, not any caller's
+            # trace-driven prefetch after the batch's latency is folded:
+            # the engine's stats leave it out, but an async caller waits
+            # for it too (``_execute`` resolves the futures only when
+            # this call returns)
             self._hotset_prefetch()
         return result
+
+    def _hotset_fill(self, vs: np.ndarray, decoded: List[np.ndarray], *,
+                     prefetch: bool = False) -> None:
+        """Offer decoded runs to the hot-set tier, in one span whose
+        attributes are the tier's counter deltas (and the host-to-device
+        copies of the runs it placed on the device)."""
+        st = self._hotset.stats
+        with self._tracer.span("query.hotset.fill", tier="gather") as sp:
+            with st._lock:
+                a0, e0, r0 = st.admitted, st.evicted, st.resident_entries
+            for v, d in zip(vs, decoded):
+                self._hotset.fill(int(v), d, prefetch=prefetch)
+            with st._lock:
+                a1, e1, r1 = st.admitted, st.evicted, st.resident_entries
+            # every entry placed is either still resident or evicted since
+            placed = (r1 - r0) + (e1 - e0)
+            sp.set(offered=len(decoded), admitted=a1 - a0, evicted=e1 - e0,
+                   copies=placed if self._hotset.plan.place == "device"
+                   else 0)
 
     def _hotset_prefetch(self) -> None:
         """Fetch + decode the tier's predicted-hot candidates and offer
@@ -667,8 +689,7 @@ class NeighborQueryEngine:
             with self._tracer.span("query.decode", tier="decode",
                                    mode="host"):
                 decoded, _ = self._decode_host(packed)
-            for v, d in zip(cand, decoded):
-                self._hotset.fill(int(v), d, prefetch=True)
+            self._hotset_fill(cand, decoded, prefetch=True)
 
     def neighbors_batch_ragged(self, vertices) -> tuple:
         """Ragged (CSR-shard) form of :meth:`neighbors_batch`: returns
@@ -739,7 +760,9 @@ class NeighborQueryEngine:
         allv = np.concatenate([f.vertices for f in batch]) \
             if batch else np.zeros(0, np.int64)
         try:
-            results = self.neighbors_batch(allv, _close_reason=reason)
+            results = self.neighbors_batch(
+                allv, _close_reason=reason,
+                _t_submit=[f.t_submit for f in batch])
             per_req = [results[a:b] for a, b in
                        zip([0, *splits], [*splits, len(results)])]
             now = self._clock()

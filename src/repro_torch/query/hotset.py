@@ -42,9 +42,10 @@ Three mechanisms, all deterministic and injectable-clock friendly:
   :class:`~repro_torch.query.QueryStats`) in a bounded frequency window;
   vertices seen ``prefetch_min_hits``+ times that are not yet resident
   become prefetch candidates, and the engine fetches+decodes up to
-  ``prefetch_batch`` of them AFTER answering each request batch — the
-  fill cost lands outside any request's latency, and the next touch of
-  a predicted hub is a hit.
+  ``prefetch_batch`` of them after each request batch — outside the
+  batch's latency in ``QueryStats``, though an async caller's future
+  resolves only after it — and the next touch of a predicted hub is a
+  hit.
 
 Placement: ``place="device"`` keeps each admitted run as an int32
 tensor on the cache's ``device`` (ids below ``2^31`` fit the same lanes
