@@ -35,9 +35,11 @@ Graph Analytics", arXiv:1608.01362) break that assumption: the hot set
 (offset-array blocks, high-degree hubs) is re-touched at irregular
 intervals and a strict recency order evicts it whenever one large batch
 touches many cold packed-byte blocks in between.  ``eviction="clock"``
-keeps a second-chance reference bit per block instead: a sweep clears
-bits before revoking, so any block re-touched since the last sweep
-survives the batch churn.  ``CachedFile(max_resident_bytes=...)`` adds a
+keeps a second-chance reference bit per block instead: a clock hand
+walks a standing residency mask in block order and clears bits before
+revoking, so any block re-touched since the last sweep survives the
+batch churn, and a victim costs the same however many blocks are
+resident.  ``CachedFile(max_resident_bytes=...)`` adds a
 per-file cap on top of the mount-wide budget, bounding how much of the
 shared budget one file's churn may claim (e.g. cap the packed-neighbor /
 feature-store traffic so the hot offset blocks are never the victims).
@@ -78,6 +80,9 @@ LOADING = -2
 REVOKING = -3
 
 DEFAULT_BLOCK_SIZE = 32 * 2**20  # 32 MiB (paper §III)
+
+# blocks in the clock hand's first search window over the residency mask
+_CLOCK_WINDOW = 64
 
 # Replacement policies (choose via core.policy.choose_access_mode)
 EVICT_LRU = "lru"          # exact recency order — sequential scans
@@ -206,11 +211,10 @@ class CachedFile:
         self.n_blocks = max(1, -(-self.size // self.block_size))
         self._statuses = _StatusArray(self.n_blocks)
         self._blocks: list[Optional[bytes]] = [None] * self.n_blocks
-        # index of blocks with data installed, so eviction scans O(resident)
-        # candidates instead of O(n_blocks) — release_block runs this on
-        # every call when the cache sits at its budget (the streaming
-        # loader's steady state)
-        self._resident_set: set[int] = set()
+        # residency mask: True where a block's data is installed.  The
+        # clock hand searches it in place (see sweep), so a victim costs
+        # the same whatever the number of resident blocks
+        self._resident_mask = np.zeros(self.n_blocks, dtype=bool)
         self._resident_lock = threading.Lock()
         self._resident_bytes = 0
         self._last_access = np.zeros(self.n_blocks, dtype=np.float64)
@@ -357,7 +361,7 @@ class CachedFile:
                         continue
                     self._blocks[c] = chunk
                     with self._resident_lock:
-                        self._resident_set.add(c)
+                        self._resident_mask[c] = True
                         self._resident_bytes += len(chunk)
                     self._last_access[c] = now
                     # the requested block was demanded (ref set); readahead
@@ -458,7 +462,7 @@ class CachedFile:
                     continue
                 self._blocks[c] = chunk
                 with self._resident_lock:
-                    self._resident_set.add(c)
+                    self._resident_mask[c] = True
                     self._resident_bytes += len(chunk)
                 self._last_access[c] = now
                 self._ref[c] = True  # the consumer announced it wants these
@@ -488,7 +492,7 @@ class CachedFile:
         self._blocks[b] = None
         freed = len(data) if data is not None else 0
         with self._resident_lock:
-            self._resident_set.discard(b)
+            self._resident_mask[b] = False
             self._resident_bytes -= freed
         self._ref[b] = False
         ok = self._statuses.cas(b, REVOKING, NOT_LOADED)
@@ -504,33 +508,49 @@ class CachedFile:
         victims exist).  Victim order follows ``self.eviction``:
 
         * ``"lru"`` — strict last-access order (exact recency);
-        * ``"clock"`` — second chance: the hand walks a snapshot of the
-          resident blocks in index order from where it last stopped; a
-          set reference bit buys the block one lap (the bit is cleared,
-          the hand moves on), a clear bit makes it the victim.  Two laps
-          bound the walk — after the first every survivor's bit is clear.
+        * ``"clock"`` — second chance: the hand walks the standing
+          residency mask in index order from where it last stopped,
+          wrapping at ``n_blocks``; a set reference bit buys a resident
+          block one lap (the bit is cleared, the hand moves on), a clear
+          bit makes it the victim, and a busy victim is passed over.  Two
+          laps of block indices bound the walk — after the first every
+          survivor's bit is clear.  The hand searches the mask a window
+          at a time, so a victim costs no more with more blocks resident.
 
         Returns bytes actually freed.
         """
         freed = 0
         if self.eviction == EVICT_CLOCK:
-            for _lap in range(2):
-                if freed >= need_bytes:
-                    break
-                resident = self.resident_blocks()  # one snapshot per lap
-                if resident.size == 0:
-                    break
-                start = int(np.searchsorted(resident, self._clock_hand))
-                order = np.concatenate([resident[start:], resident[:start]])
-                for b in order:
-                    if freed >= need_bytes:
-                        break
-                    b = int(b)
-                    self._clock_hand = b + 1
-                    if self._ref[b]:
-                        self._ref[b] = False  # second chance spent
-                        continue
-                    freed += self.try_revoke(b)
+            n = self.n_blocks
+            pos = self._clock_hand % n   # a hand at n_blocks wraps to 0
+            left = 2 * n
+            width = _CLOCK_WINDOW
+            while freed < need_bytes and left > 0:
+                w = min(width, left, n - pos)
+                # a copy: a block another thread installs meanwhile was
+                # not passed by the hand and keeps its bit
+                resident = self._resident_mask[pos:pos + w].copy()
+                victims = resident & ~self._ref[pos:pos + w]
+                v = int(victims.argmax())
+                if victims[v]:
+                    # every resident block before the victim held a set
+                    # bit: the hand passes it and the second chance is spent
+                    self._ref[pos:pos + v] &= ~resident[:v]
+                    self._clock_hand = pos + v + 1
+                    freed += self.try_revoke(pos + v)
+                    step = v + 1
+                    width = _CLOCK_WINDOW
+                else:
+                    passed = np.flatnonzero(resident)
+                    if passed.size:
+                        self._ref[pos:pos + w] &= ~resident
+                        self._clock_hand = pos + int(passed[-1]) + 1
+                    step = w
+                    # a window without a victim doubles the next, so a
+                    # long stretch of cold blocks costs O(log) searches
+                    width *= 2
+                left -= step
+                pos = (pos + step) % n
         else:
             order = sorted(self.resident_blocks(),
                            key=lambda b: self._last_access[b])
@@ -563,8 +583,10 @@ class CachedFile:
             self.share.enforce()
 
     def resident_blocks(self) -> np.ndarray:
+        """Indices of the blocks with data installed, ascending (int64)."""
         with self._resident_lock:
-            return np.array(sorted(self._resident_set), dtype=np.int64)
+            return np.flatnonzero(self._resident_mask).astype(np.int64,
+                                                              copy=False)
 
     # -- the consumer-facing read interface --------------------------------
     def pread(self, offset: int, size: int) -> bytes:
@@ -629,7 +651,7 @@ class CachedFile:
                         freed += len(data)
                         self._blocks[b] = None
                         with self._resident_lock:
-                            self._resident_set.discard(b)
+                            self._resident_mask[b] = False
                             self._resident_bytes -= len(data)
                 if self._fs is not None and freed:
                     self._fs._resident_delta(-freed)
