@@ -33,8 +33,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.shapes import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
-                                        din_input_specs, gnn_input_specs,
-                                        lm_input_specs, sds)
+                                        GNNShape, din_input_specs,
+                                        gnn_input_specs, lm_input_specs, sds)
 from repro_torch.distributed import sharding as shard_rules
 from repro_torch.distributed.sharding import P
 from repro_torch.launch import model_flops as mf
@@ -301,11 +301,16 @@ def _gnn_config(arch_id: str, shape) -> Any:
     raise KeyError(arch_id)
 
 
-def _gnn_cell(arch_id: str, shape_id: str, mesh, *,
+def _gnn_cell(arch_id: str, shape_id, mesh, *,
               opt_cfg: Optional[AdamWConfig] = None,
               edges_packed: bool = False,
               gnn_cfg_overrides: Optional[dict] = None) -> Cell:
-    shape = GNN_SHAPES[shape_id]
+    """A GNN cell on a catalog shape (``shape_id`` names one of
+    ``GNN_SHAPES``) or on a ``GNNShape`` outside the catalog (a
+    dataset's own sizes); the cell's ``shape_id`` is the shape's name."""
+    shape = shape_id if isinstance(shape_id, GNNShape) \
+        else GNN_SHAPES[shape_id]
+    shape_id = shape.name
     mod = _GNN_MODULES[arch_id]
     cfg = _gnn_config(arch_id, shape)
     if gnn_cfg_overrides:
@@ -428,13 +433,17 @@ def _din_cell(arch_id: str, shape_id: str, mesh, *,
 # public entry
 # ---------------------------------------------------------------------------
 
-def build_cell(arch_id: str, shape_id: str, mesh, **kw) -> Cell:
+def build_cell(arch_id: str, shape_id, mesh, **kw) -> Cell:
     """The cell (``arch_id``, ``shape_id``) on ``mesh`` (a
     :class:`repro_torch.launch.mesh.Mesh`); ``kw`` as
     :func:`repro_torch.launch.variants.apply_variant` gives them
     (``cfg_overrides``, ``edges_packed``, ``gnn_cfg_overrides``,
-    ``opt_cfg``, ``unroll``)."""
+    ``opt_cfg``, ``unroll``).  A GNN's ``shape_id`` may also be a
+    :class:`~repro_torch.configs.shapes.GNNShape` outside the catalog."""
     family = get_arch(arch_id).family
+    if isinstance(shape_id, GNNShape) and family != "gnn":
+        raise TypeError(f"{arch_id} is not a GNN: a GNNShape does not "
+                        f"size it")
     if family == "lm":
         return _lm_cell(arch_id, shape_id, mesh, **kw)
     kw.pop("unroll", None)  # GNN/recsys models have no layer loop to unroll

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.models.common import cross_entropy_loss, dense_init
 from repro_torch.models.gnn import layers as L
+from repro_torch.obs.trace import profiler_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,28 +57,49 @@ def init_params(cfg: PNAConfig, generator: torch.Generator,
     return params
 
 
-def forward(params: dict, batch: dict, cfg: PNAConfig) -> torch.Tensor:
-    x = batch["x"].to(cfg.dtype)
-    src, dst = batch["edge_src"], batch["edge_dst"]
-    n = x.shape[0]
-    deg = L.degree(dst, n)
-    # scalers (PNA eq. 5): identity, amplification, attenuation
+def scalers(deg: torch.Tensor, cfg: PNAConfig) -> tuple:
+    """PNA eq. 5's amplification and attenuation columns for the
+    in-degrees ``deg``: ``log(d + 1) / delta`` and ``delta / log(d + 1)``,
+    the latter's log clamped at 1e-2 (a node with no in-edge)."""
     logd = torch.log(deg + 1.0)
     amp = (logd / cfg.avg_log_degree)[:, None]
     att = (cfg.avg_log_degree / logd.clamp(min=1e-2))[:, None]
+    return amp, att
 
-    x = x @ params["enc_w"] + params["enc_b"]
+
+def forward(params: dict, batch: dict, cfg: PNAConfig) -> torch.Tensor:
+    """Logits ``[N, n_classes]``.  While a ``torch.profiler`` session
+    records, the phases open ranges (``obs.trace.profiler_range``):
+    ``pna.encode`` (degrees, scalers, encoder) and ``pna.head`` once, and
+    ``pna.message`` (gathers, message MLP), ``pna.aggregate`` (the four
+    aggregators and their scaled views) and ``pna.update`` (tower,
+    residual) once a layer."""
+    x = batch["x"].to(cfg.dtype)
+    src, dst = batch["edge_src"], batch["edge_dst"]
+    n = x.shape[0]
+    with profiler_range("pna.encode"):
+        # scalers (PNA eq. 5): identity, amplification, attenuation
+        amp, att = scalers(L.degree(dst, n), cfg)
+        x = x @ params["enc_w"] + params["enc_b"]
     for i in range(cfg.n_layers):
-        m_in = torch.cat([L.gather(x, src), L.gather(x, dst)], dim=-1)
-        msgs = torch.relu(m_in @ params[f"msg_w{i}"] + params[f"msg_b{i}"])
-        aggs = [L.scatter_mean(msgs, dst, n), L.scatter_max(msgs, dst, n),
-                L.scatter_min(msgs, dst, n), L.scatter_std(msgs, dst, n)]
-        views = []
-        for a in aggs:
-            views += [a, a * amp, a * att]
-        h = torch.cat([x] + views, dim=-1)
-        x = x + torch.relu(h @ params[f"tower_w{i}"] + params[f"tower_b{i}"])
-    return x @ params["head_w"] + params["head_b"]
+        with profiler_range("pna.message"):
+            m_in = torch.cat([L.gather(x, src), L.gather(x, dst)], dim=-1)
+            msgs = torch.relu(m_in @ params[f"msg_w{i}"]
+                              + params[f"msg_b{i}"])
+        with profiler_range("pna.aggregate"):
+            aggs = [L.scatter_mean(msgs, dst, n),
+                    L.scatter_max(msgs, dst, n),
+                    L.scatter_min(msgs, dst, n),
+                    L.scatter_std(msgs, dst, n)]
+            views = []
+            for a in aggs:
+                views += [a, a * amp, a * att]
+            h = torch.cat([x] + views, dim=-1)
+        with profiler_range("pna.update"):
+            x = x + torch.relu(h @ params[f"tower_w{i}"]
+                               + params[f"tower_b{i}"])
+    with profiler_range("pna.head"):
+        return x @ params["head_w"] + params["head_b"]
 
 
 def loss_fn(params: dict, batch: dict, cfg: PNAConfig) -> torch.Tensor:

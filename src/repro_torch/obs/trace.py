@@ -178,6 +178,29 @@ def _profiler_range(name: str):
     return rf
 
 
+class profiler_range:
+    """``with profiler_range(name):`` -- a ``record_function`` range
+    named ``name`` around the block while a ``torch.profiler`` session
+    records (:func:`_profiler_range`), a no-op otherwise.  Model code
+    names its phases with it and needs no :class:`Tracer`."""
+
+    __slots__ = ("_name", "_range")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._range = None
+
+    def __enter__(self) -> "profiler_range":
+        self._range = _profiler_range(self._name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        return False
+
+
 class _SpanHandle:
     """The live handle a ``with tracer.span(...) as sp:`` block holds."""
 
