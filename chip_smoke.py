@@ -700,14 +700,15 @@ def gnn_plain_logits(gp: str, fp: str, cfg, params: dict, fanouts,
         yield logits[:len(seeds)].numpy(), dst.astype(np.int32), n
 
 
-def k2_per_step(arch: str, cfg) -> tuple[int, int]:
-    """K2's (forward, backward) launches in one loss and its gradients
-    on the card.  GCN: one for the degrees and one a layer, and a
-    backward for the last layer only (layer 0's messages hold no
-    parameter).  PNA: the degrees, then six a layer (the mean is a sum
-    and a degree, the std two means), each sum with a backward.
-    MeshGraphNet: one a layer; DimeNet: the triplet and the node scatter
-    a block and the readout; each with a backward."""
+def k2_sums(arch: str, cfg) -> tuple[int, int]:
+    """K2's (forward, backward) launches for the segment sums of one
+    loss on the card: a served request's forward count.  GCN: one for
+    the degrees and one a layer, and a backward for the last layer only
+    (layer 0's messages hold no parameter).  PNA: the degrees, then six
+    a layer (the mean is a sum and a degree, the std two means), each
+    sum with a backward.  MeshGraphNet: one a layer; DimeNet: the
+    triplet and the node scatter a block and the readout; each with a
+    backward."""
     if arch == "gcn-cora":
         return cfg.n_layers + 1, 1
     if arch == "pna":
@@ -719,6 +720,30 @@ def k2_per_step(arch: str, cfg) -> tuple[int, int]:
     raise KeyError(arch)
 
 
+def gather_grads_per_step(arch: str, cfg) -> int:
+    """The gathers whose backward sums on K2 in one loss's gradients on
+    the card (``gather.grad_launches``): those of a tensor that needs a
+    gradient.  GCN: one a layer but layer 0 (it gathers the input
+    features); PNA and MeshGraphNet: the source and destination rows a
+    layer; DimeNet: the triplets' messages a block (positions, edge
+    vectors and input features need none)."""
+    if arch == "gcn-cora":
+        return cfg.n_layers - 1
+    if arch in ("pna", "meshgraphnet"):
+        return 2 * cfg.n_layers
+    if arch == "dimenet":
+        return cfg.n_blocks
+    raise KeyError(arch)
+
+
+def k2_per_step(arch: str, cfg) -> tuple[int, int]:
+    """K2's (forward, backward) launches in one loss and its gradients
+    on the card: :func:`k2_sums`, and one forward launch more for each
+    gather's backward (:func:`gather_grads_per_step`)."""
+    fwd, bwd = k2_sums(arch, cfg)
+    return fwd + gather_grads_per_step(arch, cfg), bwd
+
+
 def phase_gnn(device, workdir: str, *, scale: int = 18,
               edge_factor: int = 16, reduced: bool = False,
               n_requests: int = 8, batch: int = 1024,
@@ -728,7 +753,7 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
     ``reduced``): ``n_requests`` zipf-drawn batches of ``batch`` seeds,
     every request span-traced, every request's logits held against the
     plain CPU path on the same block (:func:`gnn_plain_logits`) at
-    ``GNN_TOL``; K2 launches :func:`k2_per_step`'s forward count a
+    ``GNN_TOL``; K2 launches :func:`k2_sums`' forward count a
     request."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.data_gnn import ensure_gnn_assets
@@ -777,7 +802,7 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
         worst = max(worst, float(np.abs(got - want).max()))
         assert np.allclose(got, want, rtol=GNN_TOL, atol=GNN_TOL), \
             f"served logits differ from the plain path (max {worst})"
-    assert k2 == (k2_per_step(arch, cfg)[0] * n_requests if on_gpu
+    assert k2 == (k2_sums(arch, cfg)[0] * n_requests if on_gpu
                   else 0), k2
     if on_gpu:
         assert k1 > 0 and qs["device_batches"] > 0, (k1, qs)
@@ -2272,17 +2297,21 @@ EXACT_FACTOR = 2.0
 @contextlib.contextmanager
 def plain_segment_sum(fn=None):
     """Every segment sum of the GNNs and of the MoE combine on ``fn``
-    (default: K2's plain version, autograd through ``index_add_``), on
-    any device: the yardstick the kernel path is held against."""
+    (default: K2's plain version, autograd through ``index_add_``), and
+    every GNN gather on its plain version (autograd through
+    ``index_put_``, where the card's training step sums the gather's
+    gradient on K2), on any device: the yardstick the kernel path is
+    held against."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.gnn import layers
 
-    saved = layers.segment_sum, tf.segment_sum
+    saved = layers.segment_sum, tf.segment_sum, layers.gather
     layers.segment_sum = tf.segment_sum = fn or segment_sum_ref
+    layers.gather = layers.gather_plain
     try:
         yield
     finally:
-        layers.segment_sum, tf.segment_sum = saved
+        layers.segment_sum, tf.segment_sum, layers.gather = saved
 
 
 def segment_sum_f64(messages: torch.Tensor, segment_ids: torch.Tensor,
@@ -2519,9 +2548,10 @@ def phase_train(device, workdir: str, *, scale: int = 18,
        ``StreamStats`` summed over hosts equal one host's, no byte is
        decoded on the host, K1 launches once a partition;
     2. ``steps`` AdamW steps with ``--full-graph``'s settings on that
-       batch: K2's forward launches ``n_layers + 1`` times a step and its
+       batch: K2's forward launches ``n_layers + 1`` times a step for
+       the sums and once for layer 1's gather's backward, and its
        backward once (only layer 1's messages need a gradient), asserted
-       every step; the loss must fall;
+       every step (:func:`k2_per_step`); the loss must fall;
     3. the restart: the same run with a failure injected at ``fail_at``
        and checkpoints every ``ckpt_every`` steps, held to the uninjected
        one by :func:`check_restart`; a second uninjected run gives the
@@ -4928,13 +4958,13 @@ def cell_batch(cell, device, seed: int = 0, lm_shape=None) -> tuple:
 def cell_k2_per_step(cell) -> tuple[int, int]:
     """K2's (forward, backward) launches in one step of a GNN cell
     (:func:`k2_per_step`); GCN under ``transform_first`` with a layer-0
-    weight narrower than its input also takes layer 0's backward (its
-    messages then carry a parameter)."""
+    weight narrower than its input also takes layer 0's backward and
+    its gather's (its messages then carry a parameter)."""
     fwd, bwd = k2_per_step(cell.arch_id, cell.cfg)
     cfg = cell.cfg
     if cell.arch_id == "gcn-cora" and cfg.transform_first and \
             cfg.d_hidden < cfg.d_in:
-        bwd += 1
+        fwd, bwd = fwd + 1, bwd + 1
     return fwd, bwd
 
 

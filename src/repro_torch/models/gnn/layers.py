@@ -7,28 +7,83 @@ package.  Every segment sum here goes through
 that is the hand-written kernel for every ``n_nodes`` (and, where the
 messages require grad, its backward kernel), on a CPU tensor its plain
 version.  ``scatter_std`` is two ``scatter_mean``s, so both its sums go
-through the kernel too.  ``scatter_max`` / ``scatter_min`` are the JAX
-package's XLA ``segment_max``, not a Pallas kernel, and here
-``index_reduce`` (``amax``): it takes the 1-D ids (``scatter_reduce``
-would need an index as wide as the messages) and, like
-``jax.ops.segment_max``, shares a segment's gradient evenly among tied
-maxima.
+through the kernel too.  So does the gradient of :func:`gather` in a
+training step on the card: a segment sum of the gradient rows by the
+gathered ids, on K2's forward (``_Gather``).  ``scatter_max`` /
+``scatter_min`` are the JAX package's XLA ``segment_max``, not a Pallas
+kernel, and here ``index_reduce`` (``amax``): it takes the 1-D ids
+(``scatter_reduce`` would need an index as wide as the messages) and,
+like ``jax.ops.segment_max``, shares a segment's gradient evenly among
+tied maxima.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.obs.trace import profiler_range
+
+_count_lock = threading.Lock()
 
 
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[idx] with idx == -1 -> zeros (padding).  An id at or above
     ``x.shape[0]`` reads the last row, as the JAX package's gather
     clamps it (``k2_grad``, K2's backward gather, zero-fills such a row
-    instead)."""
+    instead).
+
+    Where ``x`` is a CUDA tensor that requires grad and grad mode is on
+    (a training step on the card), the gradient is K2's segment sum of
+    the gradient rows by ``idx`` (:class:`_Gather`): a negative id sends
+    its row nowhere, an id at or above ``x.shape[0]`` sends it to the
+    last row, which it read.  Every other call, the CPU path among them,
+    is :func:`gather_plain`.  ``gather.grad_launches`` counts backward
+    calls that launched K2 (each also counts on
+    ``segment_sum.launches``), and nothing else adds to it."""
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled():
+        return _Gather.apply(x, idx)
+    return gather_plain(x, idx)
+
+
+gather.grad_launches = 0
+
+
+def gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """:func:`gather` in plain PyTorch ops, which autograd differentiates
+    through ``index_put_`` (a sort of the ids, then a walk of each run of
+    equal ids): the CPU path, and the yardstick the card's is held to."""
     out = x[idx.clamp(0, max(x.shape[0] - 1, 0))]
     return torch.where((idx >= 0)[:, None], out, 0)
+
+
+class _Gather(torch.autograd.Function):
+    """Forward :func:`gather_plain`, bit for bit; backward
+    ``segment_sum(grad_out, ids, N)`` in ``x``'s dtype, the ids at or
+    above N moved to N - 1 (K2 drops the negative ones).  Saves the ids
+    alone."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.dtype = x.shape[0], x.dtype
+        return gather_plain(x, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        (idx,) = ctx.saved_tensors
+        if not grad_out.numel():                # no edge or no column
+            return grad_out.new_zeros((ctx.n, grad_out.shape[1]),
+                                      dtype=ctx.dtype), None
+        with profiler_range("gnn.gather.backward"):
+            grad = segment_sum(grad_out, idx.clamp(max=ctx.n - 1), ctx.n)
+        if grad_out.is_cuda:
+            with _count_lock:
+                gather.grad_launches += 1
+        return grad.to(ctx.dtype), None
 
 
 def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,

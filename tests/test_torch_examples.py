@@ -385,7 +385,9 @@ def _run_of(smoke, label):
 
 def test_launch_check_detects_a_missing_launch(smoke):
     """K1 once a streamed partition on the card, K2 and its backward
-    ``k2_per_step`` a step: a run a launch short fails."""
+    ``k2_per_step`` a step (K2's forward four times: the degrees, the
+    two layers' sums and layer 1's gather's backward): a run a launch
+    short fails."""
     qs_run = _run_of(smoke, "quickstart_compbin")
     qs = {"stream": {"partitions": 9}}
     want = smoke.example_launches(qs_run, None, qs, {}, True)
@@ -399,7 +401,7 @@ def test_launch_check_detects_a_missing_launch(smoke):
     r = {"hosts": [{"partitions": 9}, {"partitions": 8}]}
     want = smoke.example_launches(_run_of(smoke, "gnn"), args, r,
                                   {"args": (None, None, gnn.CONFIG)}, True)
-    assert want == {"k1": 17, "k2": 180, "k2_grad": 60, "k3": 0}
+    assert want == {"k1": 17, "k2": 240, "k2_grad": 60, "k3": 0}
     with pytest.raises(AssertionError, match="kernel launches"):
         smoke.check_example_launches("gnn", dict(want, k2_grad=0), want)
     for label in ("din", "lm", "lm_fan_in"):

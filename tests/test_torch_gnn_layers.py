@@ -12,7 +12,9 @@ reference is, plus 1e-6 x max|g|.  The cases cover ``-1`` padding, ids at or abo
 (dropped), empty segments (0), planted ties (a tied maximum shares its
 segment's gradient evenly, as ``jax.ops.segment_max`` does) and relu
 zeros (all-zero segments: ``scatter_std``'s variance sits at the
-``maximum``'s tie)."""
+``maximum``'s tie).  The gather's autograd function (``_Gather``, the
+card's training path, whose gradient is K2's segment sum) is held bit
+for bit to autograd of the plain gather on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -194,3 +196,102 @@ def test_zero_segments_and_zero_edges():
         assert tuple(out.shape) == (5, 3)
         want = np.sqrt(np.float32(1e-5)) if name == "scatter_std" else 0.0
         np.testing.assert_allclose(out.numpy(), want, rtol=1e-6)
+
+
+GATHER_KINDS = ("padding", "ids_at_or_above_n", "hubs", "no_edges",
+                "one_node")
+
+
+def _gather_ids(kind: str, ids_dtype):
+    """(ids[E], n) for one gather case."""
+    rng = np.random.default_rng(GATHER_KINDS.index(kind))
+    n, e = 12, 300
+    ids = rng.integers(0, n, e)
+    if kind == "padding":
+        ids[rng.random(e) < 0.3] = -1
+    elif kind == "ids_at_or_above_n":       # their rows go to row n - 1
+        ids[::3] = n + rng.integers(0, 5, ids[::3].size)
+        ids[1::7] = -1
+    elif kind == "hubs":                    # one id thousands of times
+        ids = np.concatenate([np.full(5000, 4), ids, np.full(3000, n - 1)])
+        rng.shuffle(ids)
+    elif kind == "no_edges":
+        ids = ids[:0]
+    elif kind == "one_node":
+        n, ids = 1, np.where(rng.random(e) < 0.2, -1, rng.integers(0, 3, e))
+    return torch.from_numpy(ids).to(ids_dtype), n
+
+
+@pytest.mark.parametrize("through_cat", [False, True])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", GATHER_KINDS)
+def test_gather_function_matches_the_plain_gather(kind, ids_dtype,
+                                                  through_cat):
+    """``_Gather`` called directly on CPU tensors (its backward then takes
+    K2's plain version) against autograd of the plain gather, both bit for
+    bit on integer-valued inputs: the forward, and the gradient, also of
+    the two halves of a ``torch.cat`` (strided ``grad_out``, as PNA's
+    message input hands them over)."""
+    ids, n = _gather_ids(kind, ids_dtype)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-4, 5, (n, 6)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-3, 4, (ids.numel(),
+                                              12 if through_cat else 6)
+                                      ).astype(np.float32))
+    flipped = ids.flip(0)
+
+    def grad(fn):
+        xg = x.clone().requires_grad_()
+        out = fn(xg, ids)
+        if through_cat:
+            out = torch.cat([out, fn(xg, flipped)], dim=-1)
+        (g,) = torch.autograd.grad((out * w).sum(), xg)
+        return out.detach(), g
+
+    before = port_layers.gather.grad_launches
+    out, g = grad(port_layers._Gather.apply)
+    want_out, want_g = grad(port_layers.gather_plain)
+    assert port_layers.gather.grad_launches == before     # nothing on the CPU
+    assert out.dtype == g.dtype == torch.float32
+    assert torch.equal(out, want_out) and torch.equal(g, want_g)
+    # the forward is the gather as it was: clamped read, -1 rows zeroed
+    clamped = x[ids.clamp(0, n - 1)]
+    assert torch.equal(out[:, :6], torch.where((ids >= 0)[:, None],
+                                               clamped, 0))
+    if kind == "ids_at_or_above_n":
+        assert g[-1].abs().sum() > 0
+
+
+@pytest.mark.parametrize("how", ["cpu", "no_grad", "needs_no_grad"])
+def test_public_gather_takes_the_plain_path_off_a_training_step(how):
+    """The public ``gather`` engages ``_Gather`` only on a CUDA tensor
+    that requires grad under grad mode: on the CPU, under ``no_grad`` and
+    for a tensor that needs no gradient it is the plain gather."""
+    ids, n = _gather_ids("padding", torch.int32)
+    x = torch.randn(n, 4, requires_grad=how != "needs_no_grad")
+    if how == "no_grad":
+        with torch.no_grad():
+            out = port_layers.gather(x, ids)
+        assert out.grad_fn is None
+    else:
+        out = port_layers.gather(x, ids)
+        assert type(out.grad_fn).__name__ == (
+            "WhereBackward0" if how == "cpu" else "NoneType")
+    assert torch.equal(out, port_layers.gather_plain(x, ids))
+
+
+def test_gather_backward_counts_and_names_only_launches():
+    """``gather.grad_launches`` counts K2 launches alone: a backward on
+    the CPU, with edges or none, adds nothing; the backward's sum runs in
+    the ``gnn.gather.backward`` range, and none opens for no edge."""
+    x = torch.randn(5, 3, requires_grad=True)
+    before = port_layers.gather.grad_launches
+    for ids in (torch.tensor([0, 4, -1, 9, 4]), torch.zeros(0, dtype=int)):
+        with torch.profiler.profile() as prof:
+            out = port_layers._Gather.apply(x, ids)
+            (g,) = torch.autograd.grad(out.sum(), x)
+        assert g.shape == x.shape
+        ranges = [e.name for e in prof.events()
+                  if e.name == "gnn.gather.backward"]
+        assert ranges == (["gnn.gather.backward"] if ids.numel() else [])
+    assert port_layers.gather.grad_launches == before

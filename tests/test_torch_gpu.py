@@ -8,7 +8,9 @@ sum: f32 rtol 1e-5 / atol 1e-4, bf16 inputs 2e-2 / 2e-1 (atomics add in
 no fixed order; the rows design on sorted ids is held bit for bit to
 itself and to the CPU plain version; its backward, a gather, bit for
 bit); flash attention: f32 2e-4, bf16 2e-2 (rtol and atol, the JAX
-package's own kernel tolerances); a GCN training step, and the first
+package's own kernel tolerances); the GNN gather's gradient (K2's sum
+of the gradient rows): bit for bit on integer-valued inputs; a GCN
+training step, and the first
 step of PNA, MeshGraphNet and DimeNet: chip_smoke's ``TRAIN_LOSS_RTOL``
 / ``TRAIN_GRAD_TOL`` against the plain path (the other GNNs' gradients
 against the float64 plain path, chip_smoke's ``exact_close``)."""
@@ -306,9 +308,10 @@ def test_segment_sum_gradient_agrees_with_the_plain_autograd(cuda, smoke,
 
 def test_gcn_full_graph_step_on_the_card(cuda, smoke, tmp_path):
     """One --full-graph training step (2 simulated hosts, gcn-cora
-    reduced): K2's forward launches n_layers + 1 times and its backward
-    once; the loss and every gradient within chip_smoke's training
-    tolerance of the plain path on the card."""
+    reduced): K2's forward launches n_layers + 1 times for the sums and
+    once more for layer 1's gather's backward, and its backward once;
+    the loss and every gradient within chip_smoke's training tolerance
+    of the plain path on the card."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import train as tr
     from repro_torch.models.gnn import gcn
@@ -328,12 +331,142 @@ def test_gcn_full_graph_step_on_the_card(cuda, smoke, tmp_path):
     before = segment_sum.launches, segment_sum.grad_launches
     loss_k, grads_k = loss_grads()
     assert (segment_sum.launches - before[0],
-            segment_sum.grad_launches - before[1]) == (cfg.n_layers + 1, 1)
+            segment_sum.grad_launches - before[1]) == (cfg.n_layers + 2, 1)
     with smoke.plain_segment_sum():
         loss_p, grads_p = loss_grads()
     assert abs(loss_k - loss_p) <= smoke.TRAIN_LOSS_RTOL * abs(loss_p)
     for k in grads_p:
         smoke.train_close(grads_k[k], grads_p[k], k)
+
+
+def _gather_grad(x, ids, w, through_cat=False):
+    """The output and the gradient of ``sum(gather(x, ids) * w)`` through
+    the public ``gather``, with ``through_cat`` of ``cat([gather(x, ids),
+    gather(x, flipped ids)])``, whose halves hand the backward strided
+    rows, as PNA's message input does."""
+    from repro_torch.models.gnn.layers import gather
+
+    x = x.detach().requires_grad_()
+    out = gather(x, ids)
+    if through_cat:
+        out = torch.cat([out, gather(x, ids.flip(0))], dim=-1)
+    (g,) = torch.autograd.grad((out * w).sum(), x)
+    return out.detach(), g
+
+
+def _check_gather_grad(cuda, ids_np, n, d, rng, through_cat=False):
+    """The gather's output and gradient on the card against the CPU's
+    plain path, bit for bit on integer-valued rows and weights; K2
+    launched once for a backward with work, counted on
+    ``gather.grad_launches`` and ``segment_sum.launches`` alike."""
+    from repro_torch.models.gnn.layers import gather
+
+    x = torch.from_numpy(rng.integers(-8, 9, (n, d)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-8, 9, (ids_np.size, d * (
+        1 + through_cat))).astype(np.float32))
+    ids = torch.from_numpy(ids_np)
+    before = gather.grad_launches, segment_sum.launches
+    out, g = _gather_grad(x.to(cuda), ids.to(cuda), w.to(cuda), through_cat)
+    torch.cuda.synchronize()
+    launches = int(ids_np.size * d > 0) * (1 + through_cat)
+    assert (gather.grad_launches - before[0],
+            segment_sum.launches - before[1]) == (launches, launches)
+    want_out, want_g = _gather_grad(x, ids, w, through_cat)
+    assert gather.grad_launches - before[0] == launches   # none on the CPU
+    assert torch.equal(out.cpu(), want_out)
+    assert g.dtype == torch.float32 and torch.equal(g.cpu(), want_g)
+
+
+@pytest.mark.parametrize("kind", K2_LAYOUTS)
+def test_gather_gradient_on_every_layout(cuda, smoke, kind):
+    """The gather's gradient on the card (K2's sum of the gradient rows)
+    equals the CPU's plain gradient bit for bit on ``chip_smoke.k2_layout``'s
+    layouts: -1 and other negative ids send nothing, ids at or above N
+    (int64 ids of 2^31 and more among them) send their rows to row N - 1;
+    E = 0 launches nothing."""
+    rng = np.random.default_rng(300 + K2_LAYOUTS.index(kind))
+    ids_np, n, d, _ = smoke.k2_layout(kind, rng)
+    _check_gather_grad(cuda, ids_np, n, d, rng)
+
+
+@pytest.mark.parametrize("through_cat", [False, True])
+@pytest.mark.parametrize("d", [1, 8, 16, 75, 128])
+def test_gather_gradient_at_the_models_widths(cuda, d, through_cat):
+    """At the GNNs' widths (DimeNet's 8, GCN's 16, PNA's 75,
+    MeshGraphNet's 128) on hub ids (a third of 60,000 on five rows, with
+    -1 padding and ids at or above N), also through a ``torch.cat``:
+    bit for bit against the CPU's plain gradient."""
+    rng = np.random.default_rng(d)
+    n = 3000
+    ids = rng.integers(-1, n + 4, 60000)
+    hubs = rng.random(ids.size) < 1 / 3
+    ids[hubs] = rng.integers(0, 5, int(hubs.sum()))
+    _check_gather_grad(cuda, ids.astype(np.int32), n, d, rng, through_cat)
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_gather_backward_makes_no_host_sync(cuda, ids_dtype):
+    """The gather's backward at PNA's width runs without a host sync."""
+    from repro_torch.models.gnn.layers import gather
+
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(-1, 1030, 20000)).to(cuda,
+                                                               ids_dtype)
+    x = torch.randn(1024, 75, device=cuda, requires_grad=True)
+    w = torch.randn(ids.numel(), 75, device=cuda)
+    (first,) = torch.autograd.grad(gather(x, ids), x, w)   # build and load
+    out = gather(x, ids)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (g,) = torch.autograd.grad(out, x, w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(g, first, rtol=1e-5, atol=1e-4)
+
+
+def test_gather_engages_its_function_only_in_a_training_step(cuda):
+    """On the card the gather's autograd function engages for a tensor
+    that requires grad under grad mode, and the plain gather serves a
+    tensor that needs no gradient and any call under ``no_grad``."""
+    from repro_torch.models.gnn.layers import gather
+
+    ids = torch.tensor([0, 3, -1, 7, 3], device=cuda)
+    x = torch.randn(5, 4, device=cuda)
+    xg = x.clone().requires_grad_()
+    with torch.no_grad():
+        assert gather(xg, ids).grad_fn is None
+    assert gather(x, ids).grad_fn is None
+    out = gather(xg, ids)
+    assert type(out.grad_fn).__name__ == "_GatherBackward"
+    assert torch.equal(out.detach(), gather(x, ids))
+
+
+@pytest.mark.parametrize("arch,gathers", [("gcn-cora", 1), ("pna", 8)])
+def test_full_graph_step_sums_the_gathers_gradient_on_k2(cuda, smoke, arch,
+                                                         gathers):
+    """One full-graph loss and its gradients at the configs' full widths
+    (rmat(9, 8)): GCN's one gather of a tensor that needs a gradient
+    (layer 1's) and PNA's eight (two a layer, four layers) sum their
+    gradient on K2, which launches ``k2_per_step`` a step; the loss
+    within chip_smoke's training tolerance of the plain path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.data_gnn import full_graph_batch
+    from repro_torch.launch.steps import _GNN_MODULES
+    from repro_torch.models.gnn.layers import gather
+
+    cfg = get_arch(arch).make_config()
+    mod = _GNN_MODULES[arch]
+    batch = full_graph_batch(arch, cfg, rmat(9, 8, seed=2),
+                             np.random.default_rng(0), n_classes=4,
+                             device=cuda)
+    params = mod.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    assert smoke.gather_grads_per_step(arch, cfg) == gathers
+    before = gather.grad_launches
+    smoke.first_step_pair(lambda p: mod.loss_fn(p, batch, cfg), params,
+                          smoke.k2_per_step(arch, cfg))
+    assert gather.grad_launches - before == gathers
 
 
 def test_gcn_serving_goes_through_both_kernels(cuda, tmp_path):
@@ -891,9 +1024,10 @@ def test_examples_run_on_the_card(cuda, smoke, tmp_path):
     """``[examples]``' runner on the card at a few steps: the quickstart
     streams its graph through K1 (once a partition), the GNN example's
     two regimes take K1, K2 and its backward as ``example_launches``
-    reckons them with the first step held to the plain path and the loss
-    falling, DIN's first request within ``DIN_TOL`` of the plain CPU
-    path."""
+    reckons them (K2's forward four times a step: the degrees, two
+    layers' sums, layer 1's gather's backward) with the first step held
+    to the plain path and the loss falling, DIN's first request within
+    ``DIN_TOL`` of the plain CPU path."""
     argv = {"quickstart_compbin": ("--format", "compbin", "--scale", "12"),
             "gnn": ("--steps", "20"),
             "gnn_sampled": ("--sampled", "--steps", "20"),
@@ -905,7 +1039,7 @@ def test_examples_run_on_the_card(cuda, smoke, tmp_path):
         r["quickstart_compbin"]["stream"]["partitions"] > 0
     for label in ("gnn", "gnn_sampled"):
         k = r[label]["launches"]
-        assert k["k1"] > 0 and k["k2"] == 20 * 3 and k["k2_grad"] == 20
+        assert k["k1"] > 0 and k["k2"] == 20 * 4 and k["k2_grad"] == 20
         assert r[label]["checks"]["parity"]["loss_rel_err"] <= \
             smoke.TRAIN_LOSS_RTOL
     assert r["din"]["checks"]["max_abs_err"] <= smoke.DIN_TOL

@@ -817,13 +817,20 @@ def test_gnn2_phase_on_cpu(smoke, tmp_path, one_thread):
 
 
 def test_k2_per_step_counts_every_segment_sum(smoke):
-    """The launch counts the phases assert, from the configs."""
+    """The launch counts the phases assert, from the configs: a served
+    request's (the model's sums), and a training step's, whose forward
+    count adds one K2 launch a gather of a tensor that needs a
+    gradient (GCN's layer 1, PNA's and MeshGraphNet's two a layer,
+    DimeNet's triplet messages a block)."""
     from repro_torch.configs import get_arch
     full = {a: get_arch(a).make_config() for a in
             ("gcn-cora", "pna", "meshgraphnet", "dimenet")}
-    assert {a: smoke.k2_per_step(a, c) for a, c in full.items()} == {
+    assert {a: smoke.k2_sums(a, c) for a, c in full.items()} == {
         "gcn-cora": (3, 1), "pna": (25, 12), "meshgraphnet": (15, 15),
         "dimenet": (13, 13)}
+    assert {a: smoke.k2_per_step(a, c) for a, c in full.items()} == {
+        "gcn-cora": (4, 1), "pna": (33, 12), "meshgraphnet": (45, 15),
+        "dimenet": (19, 13)}
 
 
 def test_gnn2_pna_serving_detects_wrong_logits(smoke, tmp_path, monkeypatch):
