@@ -83,6 +83,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import inspect
 import itertools
 import json
 import math
@@ -92,6 +93,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -700,50 +702,6 @@ def gnn_plain_logits(gp: str, fp: str, cfg, params: dict, fanouts,
         yield logits[:len(seeds)].numpy(), dst.astype(np.int32), n
 
 
-def k2_sums(arch: str, cfg) -> tuple[int, int]:
-    """K2's (forward, backward) launches for the segment sums of one
-    loss on the card: a served request's forward count.  GCN: one for
-    the degrees and one a layer, and a backward for the last layer only
-    (layer 0's messages hold no parameter).  PNA: the degrees, then six
-    a layer (the mean is a sum and a degree, the std two means), each
-    sum with a backward.  MeshGraphNet: one a layer; DimeNet: the
-    triplet and the node scatter a block and the readout; each with a
-    backward."""
-    if arch == "gcn-cora":
-        return cfg.n_layers + 1, 1
-    if arch == "pna":
-        return 1 + 6 * cfg.n_layers, 3 * cfg.n_layers
-    if arch == "meshgraphnet":
-        return cfg.n_layers, cfg.n_layers
-    if arch == "dimenet":
-        return 2 * cfg.n_blocks + 1, 2 * cfg.n_blocks + 1
-    raise KeyError(arch)
-
-
-def gather_grads_per_step(arch: str, cfg) -> int:
-    """The gathers whose backward sums on K2 in one loss's gradients on
-    the card (``gather.grad_launches``): those of a tensor that needs a
-    gradient.  GCN: one a layer but layer 0 (it gathers the input
-    features); PNA and MeshGraphNet: the source and destination rows a
-    layer; DimeNet: the triplets' messages a block (positions, edge
-    vectors and input features need none)."""
-    if arch == "gcn-cora":
-        return cfg.n_layers - 1
-    if arch in ("pna", "meshgraphnet"):
-        return 2 * cfg.n_layers
-    if arch == "dimenet":
-        return cfg.n_blocks
-    raise KeyError(arch)
-
-
-def k2_per_step(arch: str, cfg) -> tuple[int, int]:
-    """K2's (forward, backward) launches in one loss and its gradients
-    on the card: :func:`k2_sums`, and one forward launch more for each
-    gather's backward (:func:`gather_grads_per_step`)."""
-    fwd, bwd = k2_sums(arch, cfg)
-    return fwd + gather_grads_per_step(arch, cfg), bwd
-
-
 def phase_gnn(device, workdir: str, *, scale: int = 18,
               edge_factor: int = 16, reduced: bool = False,
               n_requests: int = 8, batch: int = 1024,
@@ -753,8 +711,7 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
     ``reduced``): ``n_requests`` zipf-drawn batches of ``batch`` seeds,
     every request span-traced, every request's logits held against the
     plain CPU path on the same block (:func:`gnn_plain_logits`) at
-    ``GNN_TOL``; K2 launches :func:`k2_sums`' forward count a
-    request."""
+    ``GNN_TOL``; K2 launches as the requests ask (:func:`k2_as_asked`)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.data_gnn import ensure_gnn_assets
     from repro_torch.launch.serve import make_gnn_server
@@ -769,27 +726,28 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
     assets_s = time.perf_counter() - t0
     params = _GNN_MODULES[arch].init_params(
         cfg, torch.Generator().manual_seed(seed))
-    k1_0, k2_0 = compbin_decode.launches, segment_sum.launches
+    k1_0 = compbin_decode.launches
     tracer = Tracer()
-    answer, engine, close = make_gnn_server(
-        arch, cfg, workdir, fanouts=fanouts, seed=seed, decode="auto",
-        device=device, params=params, scale=scale, edge_factor=edge_factor,
-        tracer=tracer)
-    try:
-        requests = _zipf_requests(engine.n_vertices, n_requests, batch,
-                                  np.random.default_rng(seed + 1))
-        lat, served = [], []
-        for seeds in requests:
-            t1 = time.perf_counter()
-            served.append(answer(seeds))
-            lat.append(time.perf_counter() - t1)
-        qs = engine.stats.as_dict()
-        n_vertices = engine.n_vertices
-        file_bytes = {"graph": os.path.getsize(gp),
-                      "features": os.path.getsize(fp)}
-    finally:
-        close()
-    k1, k2 = compbin_decode.launches - k1_0, segment_sum.launches - k2_0
+    with k2_as_asked(f"[gnn] {arch} served") as asked:
+        answer, engine, close = make_gnn_server(
+            arch, cfg, workdir, fanouts=fanouts, seed=seed, decode="auto",
+            device=device, params=params, scale=scale,
+            edge_factor=edge_factor, tracer=tracer)
+        try:
+            requests = _zipf_requests(engine.n_vertices, n_requests, batch,
+                                      np.random.default_rng(seed + 1))
+            lat, served = [], []
+            for seeds in requests:
+                t1 = time.perf_counter()
+                served.append(answer(seeds))
+                lat.append(time.perf_counter() - t1)
+            qs = engine.stats.as_dict()
+            n_vertices = engine.n_vertices
+            file_bytes = {"graph": os.path.getsize(gp),
+                          "features": os.path.getsize(fp)}
+        finally:
+            close()
+    k1, k2 = compbin_decode.launches - k1_0, asked.launches()["k2"]
     traces = tracer.drain()
     assert len(traces) == n_requests, len(traces)
     tiers = _mean_tiers(traces)
@@ -802,8 +760,6 @@ def phase_gnn(device, workdir: str, *, scale: int = 18,
         worst = max(worst, float(np.abs(got - want).max()))
         assert np.allclose(got, want, rtol=GNN_TOL, atol=GNN_TOL), \
             f"served logits differ from the plain path (max {worst})"
-    assert k2 == (k2_sums(arch, cfg)[0] * n_requests if on_gpu
-                  else 0), k2
     if on_gpu:
         assert k1 > 0 and qs["device_batches"] > 0, (k1, qs)
     else:
@@ -2295,6 +2251,23 @@ EXACT_FACTOR = 2.0
 
 
 @contextlib.contextmanager
+def swapped_kernel_ops(sums, gathers):
+    """Within the block the seams where the models ask for K2, each
+    holding a function ``f``, hold ``sums(f)`` (``layers.segment_sum``,
+    ``tf.segment_sum``) or ``gathers(f)`` (``layers.gather``)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.gnn import layers
+
+    saved = layers.segment_sum, tf.segment_sum, layers.gather
+    layers.segment_sum, tf.segment_sum = sums(saved[0]), sums(saved[1])
+    layers.gather = gathers(saved[2])
+    try:
+        yield
+    finally:
+        layers.segment_sum, tf.segment_sum, layers.gather = saved
+
+
+@contextlib.contextmanager
 def plain_segment_sum(fn=None):
     """Every segment sum of the GNNs and of the MoE combine on ``fn``
     (default: K2's plain version, autograd through ``index_add_``), and
@@ -2302,16 +2275,93 @@ def plain_segment_sum(fn=None):
     ``index_put_``, where the card's training step sums the gather's
     gradient on K2), on any device: the yardstick the kernel path is
     held against."""
-    from repro_torch.models import transformer as tf
     from repro_torch.models.gnn import layers
 
-    saved = layers.segment_sum, tf.segment_sum, layers.gather
-    layers.segment_sum = tf.segment_sum = fn or segment_sum_ref
-    layers.gather = layers.gather_plain
-    try:
+    with swapped_kernel_ops(lambda _: fn or segment_sum_ref,
+                            lambda _: layers.gather_plain):
         yield
-    finally:
-        layers.segment_sum, tf.segment_sum, layers.gather = saved
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the kernel ops take ``t`` to the card."""
+    return t.is_cuda
+
+
+@dataclasses.dataclass
+class KernelRequests:
+    """What the models asked of K2 on the card within
+    :func:`kernel_requests`: ``sums``, segment sums with work (E x D x N
+    > 0); ``grad_sums``, those of messages that need a gradient (grad
+    mode on); ``grad_gathers``, gathers with work of such a tensor."""
+    sums: int = 0
+    grad_sums: int = 0
+    grad_gathers: int = 0
+
+    def launches(self) -> dict:
+        """K2's launches these requests make: a forward one a sum and a
+        gather's backward (``layers._Gather``), a ``k2_grad`` one a sum
+        needing a gradient (``rows`` also launches on a sum of no
+        edges, which no model asks for)."""
+        return {"k2": self.sums + self.grad_gathers,
+                "k2_grad": self.grad_sums}
+
+
+@contextlib.contextmanager
+def kernel_requests():
+    """Counts in a :class:`KernelRequests` what the models ask of the K2
+    ops within the block (:func:`swapped_kernel_ops`; not nested), every
+    call run as it would be.  The sum a gather's backward makes is
+    counted as the gather, where it was asked for."""
+    from repro_torch.models.gnn import layers
+
+    asked, lock = KernelRequests(), threading.Lock()
+    gather_backward = inspect.unwrap(layers._Gather.backward).__code__
+
+    def sums(real):
+        def counted(messages, segment_ids, num_segments):
+            if messages.numel() * num_segments and \
+                    sys._getframe(1).f_code is not gather_backward and \
+                    _on_card(messages):
+                with lock:
+                    asked.sums += 1
+                    asked.grad_sums += messages.requires_grad and \
+                        torch.is_grad_enabled()
+            return real(messages, segment_ids, num_segments)
+        return counted
+
+    def gathers(real):
+        def counted(x, idx):
+            if x.requires_grad and torch.is_grad_enabled() and \
+                    idx.numel() * x.numel() and _on_card(x):
+                with lock:
+                    asked.grad_gathers += 1
+            return real(x, idx)
+        counted.__dict__ = real.__dict__  # _Gather bumps grad_launches here
+        return counted
+
+    with swapped_kernel_ops(sums, gathers):
+        yield asked
+
+
+@contextlib.contextmanager
+def k2_as_asked(what: str):
+    """K2's forward and backward launches within the block equal those
+    its counted requests make (:func:`kernel_requests`; none on the
+    CPU); yields the :class:`KernelRequests`."""
+    c0 = kernel_counts()
+    with kernel_requests() as asked:
+        yield asked
+    want, got = asked.launches(), _count_delta(c0)
+    assert {k: got[k] for k in want} == want, \
+        f"{what}: K2 launches {got} != its requests' {want}"
+
+
+def add_k2(out: dict, *launches: dict) -> None:
+    """Adds checked blocks' K2 launches (:meth:`KernelRequests.launches`)
+    to ``out``'s ``k2_launches`` and ``k2_grad_launches``."""
+    for x in launches:
+        for k, n in x.items():
+            out[f"{k}_launches"] = out.get(f"{k}_launches", 0) + n
 
 
 def segment_sum_f64(messages: torch.Tensor, segment_ids: torch.Tensor,
@@ -2394,36 +2444,33 @@ def exact_close(got: torch.Tensor, exact: torch.Tensor, scale: float,
     return err
 
 
-def first_step_pair(loss_fn, params, per_step: tuple, plain_fn=None):
+def first_step_pair(loss_fn, params, plain_fn=None):
     """The loss and every gradient of ``loss_fn(params)`` on the kernel
     path and of ``plain_fn`` (default ``loss_fn``) on the plain path
     (:func:`plain_segment_sum`) on the same device: K2's launches on the
-    kernel path equal ``per_step`` and none on the plain path; the loss
-    within ``TRAIN_LOSS_RTOL``.  Returns the record and both paths'
+    kernel path as its requests ask (:func:`k2_as_asked`, recorded as
+    ``launches``) and none on the plain path; the loss within
+    ``TRAIN_LOSS_RTOL``.  Returns the record and both paths'
     gradients."""
-    c0 = _k2_counts()
-    loss_k, grads_k = loss_and_grads(loss_fn, params)
-    c1 = _k2_counts()
-    with plain_segment_sum():
+    with k2_as_asked("first-step kernel path") as asked:
+        loss_k, grads_k = loss_and_grads(loss_fn, params)
+    with k2_as_asked("first-step plain path"), plain_segment_sum():
         loss_p, grads_p = loss_and_grads(plain_fn or loss_fn, params)
-    assert _k2_counts() == c1 and (c1[0] - c0[0], c1[1] - c0[1]) == \
-        tuple(per_step), (c0, c1, _k2_counts(), per_step)
     assert abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p), \
         f"first-step loss {loss_k} != plain path's {loss_p}"
     out = {"loss": loss_k, "plain_loss": loss_p,
-           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p)}
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "launches": asked.launches()}
     return out, grads_k, grads_p
 
 
-def first_step_parity(loss_fn, params, per_step: tuple, exact=None,
-                      plain_fn=None) -> dict:
+def first_step_parity(loss_fn, params, exact=None, plain_fn=None) -> dict:
     """:func:`first_step_pair`, then each gradient of the kernel path
     within ``TRAIN_GRAD_TOL`` (:func:`train_close`) of the plain path's
     or, given ``exact`` (a callable returning the float64 plain path's
     gradients by parameter), held to those by :func:`exact_close` at the
     f32 plain path's :func:`relative_distance`."""
-    out, grads_k, grads_p = first_step_pair(loss_fn, params, per_step,
-                                            plain_fn)
+    out, grads_k, grads_p = first_step_pair(loss_fn, params, plain_fn)
     if exact is None:
         out["grad_max_abs_err"] = {
             k: train_close(grads_k[k], grads_p[k], f"first-step grad {k}")
@@ -2503,34 +2550,33 @@ def train_step_split(step, state, batch) -> dict:
     copies, other: the gathers and their backward, ``where``, PNA's
     ``index_reduce``, products, loss, AdamW) against the host-clock wall
     of the same step (:func:`profile_device`); None where the trace holds
-    no device time."""
-    wall, sums, kernels = profile_device(
-        lambda: step(state, batch), _train_kernel_class,
-        ("k2", "k2_grad", "gemm", "copy", "other"))
+    no device time; K2's launches, as the step's requests ask
+    (:func:`k2_as_asked`)."""
+    with k2_as_asked("profiled step") as asked:
+        wall, sums, kernels = profile_device(
+            lambda: step(state, batch), _train_kernel_class,
+            ("k2", "k2_grad", "gemm", "copy", "other"))
     busy = sum(sums.values())
     return {"wall_ms": wall * 1e3, "device_ms": sums if busy else None,
             "idle_share": 1 - busy / (wall * 1e3) if busy else None,
-            "top_kernels": sorted(kernels, reverse=True)[:8]}
+            "top_kernels": sorted(kernels, reverse=True)[:8],
+            "launches": asked.launches()}
 
 
 def _timed_steps(step, state, batch, n: int, device) -> tuple:
-    """``n`` steps from ``state`` on ``batch``: (state, losses, host-clock
-    seconds a step to a synchronise, K2's (forward, backward) launches a
-    step)."""
+    """``n`` steps from ``state`` on ``batch``, each launching K2 as its
+    requests ask (:func:`k2_as_asked`): (state, losses, host-clock
+    seconds a step to a synchronise, K2's launches a step)."""
     losses, secs, counts = [], [], []
-    for _ in range(n):
-        c0 = _k2_counts()
+    for i in range(n):
         t0 = time.perf_counter()
-        state, met = step(state, batch)
+        with k2_as_asked(f"step {i}") as asked:
+            state, met = step(state, batch)
         losses.append(float(met["loss"]))
         _cuda_sync(device)
         secs.append(time.perf_counter() - t0)
-        counts.append(tuple(b - a for a, b in zip(c0, _k2_counts())))
+        counts.append(asked.launches())
     return state, losses, secs, counts
-
-
-def _k2_counts() -> tuple[int, int]:
-    return segment_sum.launches, segment_sum.grad_launches
 
 
 def phase_train(device, workdir: str, *, scale: int = 18,
@@ -2548,10 +2594,8 @@ def phase_train(device, workdir: str, *, scale: int = 18,
        ``StreamStats`` summed over hosts equal one host's, no byte is
        decoded on the host, K1 launches once a partition;
     2. ``steps`` AdamW steps with ``--full-graph``'s settings on that
-       batch: K2's forward launches ``n_layers + 1`` times a step for
-       the sums and once for layer 1's gather's backward, and its
-       backward once (only layer 1's messages need a gradient), asserted
-       every step (:func:`k2_per_step`); the loss must fall;
+       batch: K2's launches as each step's requests ask, asserted every
+       step (:func:`k2_as_asked`); the loss must fall;
     3. the restart: the same run with a failure injected at ``fail_at``
        and checkpoints every ``ckpt_every`` steps, held to the uninjected
        one by :func:`check_restart`; a second uninjected run gives the
@@ -2573,7 +2617,6 @@ def phase_train(device, workdir: str, *, scale: int = 18,
     on_gpu = torch.device(device).type == "cuda"
     spec = get_arch("gcn-cora")
     cfg = spec.make_reduced() if reduced else spec.make_config()
-    per_step = k2_per_step("gcn-cora", cfg) if on_gpu else (0, 0)
     out = {"arch": cfg.name, "d_in": cfg.d_in, "d_hidden": cfg.d_hidden,
            "n_classes": cfg.n_classes, "scale": scale,
            "edge_factor": edge_factor, "hosts": hosts}
@@ -2634,17 +2677,15 @@ def phase_train(device, workdir: str, *, scale: int = 18,
         torch.cuda.reset_peak_memory_stats(device)
     state, losses, step_s, counts = _timed_steps(step, state0, batch, steps,
                                                  device)
-    assert all(c == per_step for c in counts), (counts, per_step)
     if on_gpu:        # one more step, under the profiler
         out["step_split"] = train_step_split(step, state, batch)
-        counts.append(per_step)
+        counts.append(out["step_split"]["launches"])
     assert np.isfinite(losses).all(), losses
     assert losses[-1] < losses[0], f"full-graph loss did not fall: {losses}"
+    add_k2(out, *counts)
     out.update(losses=losses, step_s=step_s,
                step_p50_s=statistics.median(step_s),
-               k2_per_step=list(per_step),
-               k2_launches=len(counts) * per_step[0],
-               k2_grad_launches=len(counts) * per_step[1],
+               k2_per_step=list(counts[0].values()),
                max_memory_allocated=(torch.cuda.max_memory_allocated(device)
                                      if on_gpu else None))
 
@@ -2665,17 +2706,14 @@ def phase_train(device, workdir: str, *, scale: int = 18,
             on_metrics=lambda s, m: seen.append((s, float(m["loss"]))))
         return final, inputs, seen
 
-    c0 = _k2_counts()
-    restored, inputs, seen = run_trainer(
-        os.path.join(workdir, "train_ckpt"), fail_at)
+    with k2_as_asked("[train] restart") as asked:
+        restored, inputs, seen = run_trainer(
+            os.path.join(workdir, "train_ckpt"), fail_at)
+        replica = run_trainer(os.path.join(workdir, "train_ckpt_b"), None)[0]
+    add_k2(out, asked.launches())
     resume = (fail_at // ckpt_every) * ckpt_every
-    ran = len(seen)
-    assert tuple(b - a for a, b in zip(c0, _k2_counts())) == (
-        ran * per_step[0], ran * per_step[1]), (c0, _k2_counts())
     assert [s for s, _ in seen] == list(range(1, fail_at + 1)) + list(
         range(resume + 1, steps + 1)), seen
-    replica = run_trainer(os.path.join(workdir, "train_ckpt_b"), None)[0]
-    ran += steps
     out["restart"] = {"fail_at": fail_at, "ckpt_every": ckpt_every,
                       "steps_replayed": fail_at - resume,
                       **check_restart(inputs[fail_at], inputs[resume],
@@ -2684,8 +2722,6 @@ def phase_train(device, workdir: str, *, scale: int = 18,
                                       params0),
                       "noise_floor": param_drift(replica, state, params0)}
     del restored, state, state0, inputs, replica
-    out["k2_launches"] += ran * per_step[0]
-    out["k2_grad_launches"] += ran * per_step[1]
 
     # 4. the first step's loss and grads, kernel path vs plain path
     pb = tr._gnn_full_graph_batches("gcn-cora", cfg, workdir, True, hosts,
@@ -2698,9 +2734,8 @@ def phase_train(device, workdir: str, *, scale: int = 18,
         "scale": parity_scale, "vertices": pb.results[0].n_vertices,
         "edges": int(pb.batch["edge_src"].numel()),
         **first_step_parity(lambda p: gcn.loss_fn(p, pb.batch, cfg),
-                            params0, per_step)}
-    out["k2_launches"] += per_step[0]
-    out["k2_grad_launches"] += per_step[1]
+                            params0)}
+    add_k2(out, out["parity"]["launches"])
     del pb
     if on_gpu:
         torch.cuda.empty_cache()
@@ -2722,18 +2757,17 @@ def phase_train(device, workdir: str, *, scale: int = 18,
             t0 = time.perf_counter()
             b = next(sb)
             t1 = time.perf_counter()
-            c0 = _k2_counts()
-            st, met = sstep(st, b)
+            with k2_as_asked("[train] sampled step") as asked:
+                st, met = sstep(st, b)
             slosses.append(float(met["loss"]))
             _cuda_sync(device)
             fetch_s.append(t1 - t0)
             sstep_s.append(time.perf_counter() - t1)
-            scounts.append(tuple(y - x for x, y in zip(c0, _k2_counts())))
+            scounts.append(asked.launches())
         k1_sampled = compbin_decode.launches - k1_0
         qs = sb.engine.stats.as_dict()
     finally:
         sb.close()
-    assert all(c == per_step for c in scounts), scounts
     assert np.isfinite(slosses).all(), slosses
     assert k1_sampled == (qs["device_batches"] if on_gpu else 0), \
         (k1_sampled, qs["device_batches"])
@@ -2749,8 +2783,7 @@ def phase_train(device, workdir: str, *, scale: int = 18,
         "valid_edges": int((b["edge_dst"] >= 0).sum()),
         "nodes": int(b["x"].shape[0])}
     out["k1_launches"] = out["k1_load_launches"] + k1_sampled
-    out["k2_launches"] += sampled_steps * per_step[0]
-    out["k2_grad_launches"] += sampled_steps * per_step[1]
+    add_k2(out, *scounts)
     # the two training shapes K2's backward sees, for its timing
     out["full_graph_ids"] = batch["edge_dst"]
     out["sampled_ids"] = b["edge_dst"]
@@ -2780,7 +2813,6 @@ def gnn2_pna_train(device, workdir: str, cfg, *, scale: int, edge_factor: int,
     from repro_torch.optim import AdamWConfig, adamw_init
 
     on_gpu = torch.device(device).type == "cuda"
-    per_step = k2_per_step("pna", cfg) if on_gpu else (0, 0)
     k1_0 = compbin_decode.launches
     host0 = core_compbin.host_decoded_bytes()
     t0 = time.perf_counter()
@@ -2807,7 +2839,6 @@ def gnn2_pna_train(device, workdir: str, cfg, *, scale: int, edge_factor: int,
         torch.cuda.reset_peak_memory_stats(device)
     state, losses, secs, counts = _timed_steps(step, state, batch, steps,
                                                device)
-    assert all(c == per_step for c in counts), (counts, per_step)
     assert np.isfinite(losses).all(), losses
     assert losses[-1] < losses[0], f"PNA full-graph loss did not fall: " \
         f"{losses}"
@@ -2816,11 +2847,11 @@ def gnn2_pna_train(device, workdir: str, cfg, *, scale: int, edge_factor: int,
            "step_p50_s": statistics.median(secs),
            "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                     if on_gpu else None),
-           "k1_launches": k1, "k2_per_step": list(per_step)}
-    ran = steps
+           "k1_launches": k1, "k2_per_step": list(counts[0].values())}
     if on_gpu:
         out["step_split"] = train_step_split(step, state, batch)
-        ran += 1
+        counts.append(out["step_split"]["launches"])
+    add_k2(out, *counts)
     out["full_graph_ids"] = batch["edge_dst"]
     del state, fb, batch
     if on_gpu:
@@ -2836,12 +2867,9 @@ def gnn2_pna_train(device, workdir: str, cfg, *, scale: int, edge_factor: int,
         "vertices": pb.results[0].n_vertices,
         "edges": int(pb.batch["edge_src"].numel()),
         **first_step_parity(lambda p: pna.loss_fn(p, pb.batch, cfg),
-                            params0, per_step,
-                            exact=exact_plain_grads(pna, cfg, pb.batch,
-                                                    params0))}
-    ran += 1
-    out["k2_launches"], out["k2_grad_launches"] = (ran * per_step[0],
-                                                   ran * per_step[1])
+                            params0, exact=exact_plain_grads(
+                                pna, cfg, pb.batch, params0))}
+    add_k2(out, out["parity"]["launches"])
     return out
 
 
@@ -2864,7 +2892,7 @@ def gnn2_trained(arch: str, device, workdir: str, *, size: int,
                  seed: int = 0) -> dict:
     """MeshGraphNet or DimeNet at full width unless ``reduced``: the
     training CLI's run (``train.train``, the default mode: rmat(10, 8),
-    64 seeds, fanouts (5, 5)) for ``steps`` steps, K2's launches asserted;
+    64 seeds, fanouts (5, 5)) for ``steps`` steps, K2's launches as asked;
     then full-batch steps on ``full_graph_batch`` of
     :func:`gnn2_graph`'s graph at ``size``: three timed, one under the
     profiler; then the first step at ``parity_size`` held to the plain
@@ -2879,23 +2907,20 @@ def gnn2_trained(arch: str, device, workdir: str, *, size: int,
     on_gpu = torch.device(device).type == "cuda"
     spec = get_arch(arch)
     cfg = spec.make_reduced() if reduced else spec.make_config()
-    per_step = k2_per_step(arch, cfg) if on_gpu else (0, 0)
-    c0 = _k2_counts()
     t0 = time.perf_counter()
-    run = tr.train(arch, steps=steps, reduced=reduced, device=device,
-                   workdir=os.path.join(workdir, "gnn2_train"),
-                   ckpt_dir=os.path.join(workdir, f"gnn2_ckpt_{arch}"))
+    with k2_as_asked(f"[gnn2] {arch} CLI run") as asked:
+        run = tr.train(arch, steps=steps, reduced=reduced, device=device,
+                       workdir=os.path.join(workdir, "gnn2_train"),
+                       ckpt_dir=os.path.join(workdir, f"gnn2_ckpt_{arch}"))
     cli_s = time.perf_counter() - t0
-    assert tuple(b - a for a, b in zip(c0, _k2_counts())) == (
-        steps * per_step[0], steps * per_step[1]), (c0, _k2_counts())
     assert len(run["losses"]) == steps and np.isfinite(run["losses"]).all(), \
         run["losses"]
     out = {"arch": cfg.name, "d_hidden": cfg.d_hidden,
            "n_bilinear": getattr(cfg, "n_bilinear", None),
            "n_targets": getattr(cfg, "n_targets", None),
            "cli_losses": run["losses"], "cli_wall_s": cli_s,
-           "cli_step_p50_s": statistics.median(run["step_times_s"]),
-           "k2_per_step": list(per_step)}
+           "cli_step_p50_s": statistics.median(run["step_times_s"])}
+    add_k2(out, asked.launches())
     del run
 
     graph, csr = gnn2_graph(arch, size)
@@ -2910,18 +2935,18 @@ def gnn2_trained(arch: str, device, workdir: str, *, size: int,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     state, losses, secs, counts = _timed_steps(step, state, batch, 3, device)
-    assert all(c == per_step for c in counts), (counts, per_step)
     assert np.isfinite(losses).all(), losses
     out.update(graph=graph, vertices=csr.n_vertices,
+               k2_per_step=list(counts[0].values()),
                edges=int(batch["edge_src"].numel()),
                full_batch_losses=losses, step_s=secs,
                step_p50_s=statistics.median(secs[1:]),
                max_memory_allocated=(torch.cuda.max_memory_allocated(device)
                                      if on_gpu else None))
-    ran = steps + 3
     if on_gpu:
         out["step_split"] = train_step_split(step, state, batch)
-        ran += 1
+        counts.append(out["step_split"]["launches"])
+    add_k2(out, *counts)
     ids = (batch["triplet_ji"], batch["graph_id"]) if arch == "dimenet" \
         else (batch["edge_dst"],)
     del state, batch
@@ -2935,11 +2960,9 @@ def gnn2_trained(arch: str, device, workdir: str, *, size: int,
         "graph": pgraph, "vertices": pcsr.n_vertices,
         "edges": int(pbatch["edge_src"].numel()),
         **first_step_parity(lambda p: mod.loss_fn(p, pbatch, cfg), params0,
-                            per_step, exact=exact_plain_grads(
-                                mod, cfg, pbatch, params0))}
-    ran += 1
-    out["k2_launches"], out["k2_grad_launches"] = (ran * per_step[0],
-                                                   ran * per_step[1])
+                            exact=exact_plain_grads(mod, cfg, pbatch,
+                                                    params0))}
+    add_k2(out, out["parity"]["launches"])
     if arch == "dimenet":
         out["triplet_ids"], out["graph_ids"] = ids
     else:
@@ -3541,8 +3564,8 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
     the combine's gradient; AdamW with f32 masters):
 
     1. ``steps`` timed steps on the first ``steps`` batches (a
-       :func:`write_zipf_shard` stream), K2's launches a step asserted
-       (forward and backward one a layer for the MoE, none for a dense
+       :func:`write_zipf_shard` stream), K2's launches a step as asked
+       (:func:`k2_as_asked`: one a layer for the MoE, none for a dense
        FFN), finite losses that fall (the last three's mean below the
        first three's); one more step under the profiler;
     2. the restart: the same steps through ``ResilientTrainer`` with a
@@ -3570,7 +3593,6 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
     cfg = spec.make_reduced() if reduced else spec.make_config()
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    per_step = (cfg.n_layers, cfg.n_layers) if cfg.moe and on_gpu else (0, 0)
     wd = os.path.join(workdir, f"lm_train_{arch}")
     os.makedirs(wd, exist_ok=True)
     write_zipf_shard(os.path.join(wd, "tokens.ctok"), cfg.vocab, seed=seed)
@@ -3604,7 +3626,6 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
         losses += l1
         secs += s1
         counts += c1
-    assert all(c == per_step for c in counts), (counts, per_step)
     assert np.isfinite(losses).all() and \
         np.mean(losses[-3:]) < np.mean(losses[:3]), losses
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -3614,19 +3635,20 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
                               for t in tree_leaves(state)),
            "load_s": load_s, "losses": losses, "step_s": secs,
            "step_p50_s": statistics.median(secs[1:]),
-           "k2_per_step": list(per_step),
+           "k2_per_step": list(counts[0].values()),
            "memory_allocated_before": allocated_before,
            "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                     if on_gpu else None)}
-    ran = steps
     if on_gpu:
         out["step_split"] = train_step_split(step, state, batches[steps])
-        ran += 1
+        counts.append(out["step_split"]["launches"])
     if cfg.moe:
         # the combine's ids at this shape, for K2's backward timing
         calls = []
-        with torch.no_grad(), recorded_moe(calls, keep_messages=False):
+        with k2_as_asked(f"[lm_train] {arch} combine ids") as asked, \
+                torch.no_grad(), recorded_moe(calls, keep_messages=False):
             tf.forward_hidden(state["params"], batches[0]["tokens"], cfg)
+        counts.append(asked.launches())
         out["combine_ids"] = calls[0]["combine"][1:]
         del calls
     # the uninjected run's params wait on the host while the restart runs
@@ -3661,15 +3683,17 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
 
     recording.calls = 0
     replay = batches[:fail_at + 1] + batches[resume:steps]
-    c0 = _k2_counts()
     first = {"params": init_fn(seed)}
     first["opt"] = adamw_init(first["params"], opt_cfg)
     start = tree_map(lambda t: t.to("cpu"), first["params"])
     trainer = ResilientTrainer(recording, first, ckpt_dir=ckpt_dir,
                                ckpt_every=ckpt_every, keep_last=1)
     del first
-    restored = trainer.run(iter(replay), n_steps=steps,
-                           inject_failure_at=fail_at, on_metrics=on_metrics)
+    with k2_as_asked(f"[lm_train] {arch} restart") as asked:
+        restored = trainer.run(iter(replay), n_steps=steps,
+                               inject_failure_at=fail_at,
+                               on_metrics=on_metrics)
+    counts.append(asked.launches())
     ckpt_bytes.append(dir_bytes(ckpt_dir))
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     assert [s for s, _ in seen] == list(range(1, fail_at + 1)) + list(
@@ -3677,9 +3701,6 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
     # the trainer saves after every ckpt_every-th step and the last one
     saves = sum(s % ckpt_every == 0 or s == steps for s, _ in seen)
     assert min(ckpt_bytes) > 0, ckpt_bytes
-    assert tuple(b - a for a, b in zip(c0, _k2_counts())) == (
-        len(seen) * per_step[0], len(seen) * per_step[1])
-    ran += len(seen)
     restored = {"params": restored["params"]}
     del trainer
     gc.collect()
@@ -3700,18 +3721,17 @@ def lm_train_one(arch: str, device, workdir: str, *, layers, batch: int,
     if on_gpu:
         torch.cuda.empty_cache()
     out["restart"]["wall_s"] = time.perf_counter() - t_restart
-    return _lm_parity(out, arch, cfg, init_fn, per_step, device, seed, ran,
-                      t_start)
+    add_k2(out, *counts)
+    return _lm_parity(out, cfg, init_fn, device, seed, t_start)
 
 
-def _lm_parity(out: dict, arch: str, cfg, init_fn, per_step, device,
-               seed: int, ran: int, t_start: float) -> dict:
+def _lm_parity(out: dict, cfg, init_fn, device, seed: int,
+               t_start: float) -> dict:
     """:func:`lm_train_one`'s last part: the first step, f32, the kernel
-    path against the plain path (and float64 for an MoE); ``ran`` the
-    steps run so far, for the launch totals."""
+    path against the plain path (and float64 for an MoE), its K2
+    launches added to ``out``'s totals."""
     from repro_torch.models import transformer as tf
 
-    on_gpu = torch.device(device).type == "cuda"
     t_parity = time.perf_counter()
 
     # 3. the first step, f32, kernel path vs plain path (and float64)
@@ -3738,7 +3758,7 @@ def _lm_parity(out: dict, arch: str, cfg, init_fn, per_step, device,
             return loss_and_grads(routed(lambda p: loss_fn(p, cfg64)),
                                   tree_map(torch.Tensor.double, params32))[1]
 
-    par = first_step_parity(routed(loss_fn), params32, per_step,
+    par = first_step_parity(routed(loss_fn), params32,
                             exact=exact if cfg.moe else None)
     if cfg.moe:
         par["routing"] = {
@@ -3753,10 +3773,7 @@ def _lm_parity(out: dict, arch: str, cfg, init_fn, per_step, device,
                 f"gradients cannot be compared")
     out["parity"] = {"batch": pb, "seq": ps, **par,
                      "wall_s": time.perf_counter() - t_parity}
-    ran += 1
-    k2_forward_only = cfg.n_layers if cfg.moe and on_gpu else 0
-    out["k2_launches"] = ran * per_step[0] + k2_forward_only
-    out["k2_grad_launches"] = ran * per_step[1]
+    add_k2(out, par["launches"])
     out["wall_s"] = time.perf_counter() - t_start
     return out
 
@@ -4955,32 +4972,18 @@ def cell_batch(cell, device, seed: int = 0, lm_shape=None) -> tuple:
     return batch, (edge_ids if packed else None)
 
 
-def cell_k2_per_step(cell) -> tuple[int, int]:
-    """K2's (forward, backward) launches in one step of a GNN cell
-    (:func:`k2_per_step`); GCN under ``transform_first`` with a layer-0
-    weight narrower than its input also takes layer 0's backward and
-    its gather's (its messages then carry a parameter)."""
-    fwd, bwd = k2_per_step(cell.arch_id, cell.cfg)
-    cfg = cell.cfg
-    if cell.arch_id == "gcn-cora" and cfg.transform_first and \
-            cfg.d_hidden < cfg.d_in:
-        fwd, bwd = fwd + 1, bwd + 1
-    return fwd, bwd
-
-
-def cell_expected(cell, on_gpu: bool = True) -> dict:
+def cell_expected(cell, asked: KernelRequests, on_gpu: bool = True) -> dict:
     """Each kernel's launches in one step of ``cell`` on the card: K1
     two (the packed edge ids) under ``edges_compbin``; K2 and its
-    backward by :func:`cell_k2_per_step` in a GNN cell; K3 one a layer
-    in a prefill; none in a DIN cell.  Off the card, none."""
-    out = {"k1": 0, "k2": 0, "k2_grad": 0, "k3": 0}
+    backward as the step's requests ``asked`` (:func:`kernel_requests`);
+    K3 one a layer in a prefill; none in a DIN cell.  Off the card,
+    none."""
+    out = {"k1": 0, **asked.launches(), "k3": 0}
     family = get_arch(cell.arch_id).family
     if not on_gpu:
         return out
-    if family == "gnn":
-        out["k2"], out["k2_grad"] = cell_k2_per_step(cell)
-        if cell.args[1]["edge_src"].dtype == torch.uint8:
-            out["k1"] = 2
+    if family == "gnn" and cell.args[1]["edge_src"].dtype == torch.uint8:
+        out["k1"] = 2
     elif cell.kind in ("prefill", "decode"):
         out["k3"] = cell.cfg.n_layers
     return out
@@ -5105,7 +5108,7 @@ def _cell_loss(cell, packed: bool = True):
 
 def cell_parity(cell, params, batch, device, edge_ids=None) -> dict:
     """A GNN cell's first step on the card held to the plain path: for
-    GCN by :func:`first_step_parity` (K2's launches as reckoned, the loss
+    GCN by :func:`first_step_parity` (K2's launches as asked, the loss
     within ``TRAIN_LOSS_RTOL``, the gradients within ``TRAIN_GRAD_TOL``,
     as ``[train]`` holds them), for PNA, MeshGraphNet and DimeNet by
     :func:`first_step_pair` with both paths' gradients within
@@ -5122,14 +5125,12 @@ def cell_parity(cell, params, batch, device, edge_ids=None) -> dict:
 
         def plain_fn(p):
             return plain(p, unpacked)
-    on_gpu = torch.device(device).type == "cuda"
-    per_step = cell_k2_per_step(cell) if on_gpu else (0, 0)
     if cell.arch_id == "gcn-cora":
-        par = first_step_parity(lambda p: loss(p, batch), params, per_step,
+        par = first_step_parity(lambda p: loss(p, batch), params,
                                 plain_fn=plain_fn)
     else:
         par, grads_k, grads_p = first_step_pair(lambda p: loss(p, batch),
-                                                params, per_step, plain_fn)
+                                                params, plain_fn)
         full = dict(batch, n_graphs=GNN_SHAPES[cell.shape_id].n_graphs)
         grads_x = exact_plain_grads(steps._GNN_MODULES[cell.arch_id],
                                     cell.cfg, full, params)()
@@ -5177,7 +5178,8 @@ def run_cell_on_device(cell, rec: dict, device, *, reps: int = CELL_STEP_REPS,
     held to float64 through :func:`shadow_attend`), then one timed call under the profiler (a
     32k-token prefill takes seconds) or ``reps`` timed calls and a
     profiled one.  Every call's launches must equal
-    :func:`cell_expected`; every loss and output is finite.  Returns the
+    :func:`cell_expected` of its requests (the first call's kept as
+    ``expected_per_step``); every loss and output is finite.  Returns the
     step ms, ``max_memory_allocated`` over the cell's own allocations
     beside the estimate, the TFLOP/s of ``model_flops``, the profiler
     split, the launches on the main path and those made by checks."""
@@ -5187,12 +5189,10 @@ def run_cell_on_device(cell, rec: dict, device, *, reps: int = CELL_STEP_REPS,
     label = f"{cell.arch_id}|{cell.shape_id}|{rec.get('variant')}"
     base = torch.cuda.memory_allocated(device) if on_gpu else 0
     t_start = time.perf_counter()
-    expected = cell_expected(cell, on_gpu)
-    main = dict.fromkeys(expected, 0)
-    checks_made = dict.fromkeys(expected, 0)
+    main = dict.fromkeys(kernel_counts(), 0)
+    checks_made = dict.fromkeys(kernel_counts(), 0)
     out = {"arch": cell.arch_id, "shape": cell.shape_id,
            "variant": rec.get("variant", "baseline"), "kind": cell.kind,
-           "expected_per_step": expected,
            "estimate_bytes": rec["memory"]["card_peak_est_bytes"]}
     params = cell_params(cell, device, seed)
     batch, edge_ids = cell_batch(cell, device, seed + 1, lm_shape)
@@ -5206,10 +5206,12 @@ def run_cell_on_device(cell, rec: dict, device, *, reps: int = CELL_STEP_REPS,
 
     def step_call(state, **kw):
         c0 = kernel_counts()
-        res = cell.fn(state, batch, **kw)
+        with kernel_requests() as asked:
+            res = cell.fn(state, batch, **kw)
         _cuda_sync(device)
-        got = _count_delta(c0)
+        got, expected = _count_delta(c0), cell_expected(cell, asked, on_gpu)
         assert got == expected, f"{label}: launches {got} != {expected}"
+        out.setdefault("expected_per_step", expected)
         for k in main:
             main[k] += got[k]
         return res
@@ -5631,20 +5633,18 @@ def quickstart_launches(args, r: dict, first: dict) -> dict:
 
 def gnn_launches(args, r: dict, first: dict) -> dict:
     """K1 once a streamed partition of the hosts or a device batch of the
-    query engine (``--sampled``); K2 forward and backward
-    :func:`k2_per_step` a step."""
-    fwd, bwd = k2_per_step("gcn-cora", first["args"][2])
+    query engine (``--sampled``)."""
     return {"k1": (r["engine"]["device_batches"] if args.sampled
-                   else sum(h["partitions"] for h in r["hosts"])),
-            "k2": args.steps * fwd, "k2_grad": args.steps * bwd}
+                   else sum(h["partitions"] for h in r["hosts"]))}
 
 
 def example_launches(run: "ExampleRun", args, r: dict, first: dict,
-                     on_gpu: bool) -> dict:
-    """The kernel launches ``run`` makes: on the card as its ``launches``
-    reckons them, K3 never (training takes the plain attention); none on
-    the CPU."""
-    want = {"k1": 0, "k2": 0, "k2_grad": 0, "k3": 0}
+                     on_gpu: bool, asked: KernelRequests) -> dict:
+    """The kernel launches ``run`` makes: K2 and its backward as the run's
+    requests ``asked`` (:func:`kernel_requests`), K1 on the card as its
+    ``launches`` reckons it, K3 never (training takes the plain
+    attention); none on the CPU."""
+    want = {"k1": 0, **asked.launches(), "k3": 0}
     if on_gpu:
         want.update(run.launches(args, r, first))
     return want
@@ -5698,10 +5698,7 @@ def gnn_checks(label: str, args, r: dict, first: dict, device) -> dict:
     from repro_torch.models.gnn import gcn
 
     params, batch, cfg = first["args"]
-    on_gpu = torch.device(device).type == "cuda"
-    per_step = k2_per_step("gcn-cora", cfg) if on_gpu else (0, 0)
-    par = first_step_parity(lambda p: gcn.loss_fn(p, batch, cfg),
-                            params, per_step)
+    par = first_step_parity(lambda p: gcn.loss_fn(p, batch, cfg), params)
     par["printed_loss_rel_err"] = check_first_loss(
         label, r["losses"][0], par["plain_loss"])
     return {"parity": par, **check_losses_fall(label, r["losses"], 10),
@@ -5893,7 +5890,7 @@ class ExampleRun(NamedTuple):
     device)`` passed as ``run``'s ``params=``, else the example draws its
     own); ``recorded``, the library function (module, attribute) whose
     first call's arguments the checks take; ``launches(args, r, first)``,
-    the kernels the run makes on the card (:func:`example_launches`);
+    K1's launches in the run on the card (:func:`example_launches`);
     ``checks(label, args, r, first, device)``; ``line(x)``, its log
     line's middle part."""
     label: str
@@ -5982,8 +5979,9 @@ def first_call(module, name: str, store: dict):
 def phase_examples(device, workdir: str, runs=EXAMPLE_RUNS) -> dict:
     """``[examples]``: each of ``runs`` (``EXAMPLE_RUNS``) through its
     example's ``run(args, device=)`` in this process, every kernel count
-    zeroed just before and read just after (held by
-    :func:`check_example_launches`), the example's own checks raising
+    zeroed just before and read just after and its requests to K2
+    counted (held by :func:`check_example_launches`), the example's own
+    checks raising
     where it asserts (the quickstart's streamed CSR against the generated
     one), then the run's ``checks``.  Returns each run's numbers, its
     wall time, its launches and its checks."""
@@ -6005,14 +6003,14 @@ def phase_examples(device, workdir: str, runs=EXAMPLE_RUNS) -> dict:
         compbin_decode.launches = segment_sum.launches = 0
         segment_sum.grad_launches = flash_attention.launches = 0
         t0 = time.perf_counter()
-        with hook:
+        with hook, kernel_requests() as asked:
             r = mod.run(args, device=device, **kw)
         if on_gpu:
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
         launches = kernel_counts()
-        check_example_launches(run.label, launches,
-                               example_launches(run, args, r, first, on_gpu))
+        check_example_launches(run.label, launches, example_launches(
+            run, args, r, first, on_gpu, asked))
         t1 = time.perf_counter()
         checks = run.checks(run.label, args, r, first, device)
         out[run.label] = {"example": run.example, "argv": list(run.argv),

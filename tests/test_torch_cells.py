@@ -19,6 +19,7 @@ as integers; an LM prefill on the reduced smollm-360m through
 ``cfg_overrides`` and real ``[2, 16]`` tokens, logits and caches within
 3e-4; DIN's serve step on the reduced config's weights within 1e-5."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

@@ -13,31 +13,19 @@ raises, a status count off, an LM cell counted below the arithmetic its
 model needs, an output dtype off the abstract trace's, a first-step
 gradient off the plain path (GCN) or off the float64 one (PNA), a wrong
 id out of the packed decode, a packed loss off the int64 path, an
-attention row off float64, a launch count off, a NaN loss and a
-collective on a world of one."""
+attention row off float64, a launch one short of the step's
+requests, a NaN loss and a collective on a world of one."""
 
+from _torch_env import load_chip_smoke  # first: one torch thread
 import functools
-import importlib.util
-import pathlib
-import sys
 
 import pytest
 import torch
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-
 
 @pytest.fixture(scope="module")
 def smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    path_before = list(sys.path)
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path[:] = path_before
-    return mod
+    return load_chip_smoke()
 
 
 def _lm_over():
@@ -233,10 +221,10 @@ def test_attention_row_off_float64_fails(smoke, phase, monkeypatch):
 
 
 def test_launch_count_off_fails(smoke, phase, monkeypatch):
-    real = smoke.cell_expected
-    monkeypatch.setattr(smoke, "cell_expected",
-                        lambda cell, on_gpu=True: dict(real(cell, on_gpu),
-                                                       k2=1))
+    """The step's first segment sum counted as asked of the card (the
+    device check true once) where no kernel launched."""
+    asks = iter([True])
+    monkeypatch.setattr(smoke, "_on_card", lambda t: next(asks, False))
     _, run = _run(smoke, phase, 0)
     with pytest.raises(AssertionError, match="launches"):
         run()

@@ -8,6 +8,7 @@ The CUDA kernel itself cannot run without a GPU; ``chip_smoke.py`` holds
 it against the same plain version on the card.
 """
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ int8, at a world of one too), a world of two processes against the
 arithmetic written out in numpy, and 3 ``--compress-grads`` training
 steps against the JAX package's."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import os
 import subprocess
 import sys

@@ -12,6 +12,7 @@ and the loss within 1e-5; gradients within rtol 1e-4, atol 1e-6 x
 max|g| of the JAX package's; after 10 steps each param within 1 % (L2)
 of the distance the JAX package's steps moved it."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 import logging
 
@@ -314,18 +315,7 @@ def test_steps_match_the_reference(which):
         assert np.linalg.norm(mine[k].numpy() - v) <= 1e-2 * moved, k
 
 
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def test_cli_trains_din_and_restarts_bit_for_bit(tmp_path, caplog,
-                                                 one_thread):
+def test_cli_trains_din_and_restarts_bit_for_bit(tmp_path, caplog):
     """``--arch din --reduced``: 10 steps ending with the ``done:`` line;
     a run with a failure injected at step 6 restores the step-4
     checkpoint and steps on.  The trainer checkpoints no data position

@@ -12,16 +12,13 @@ repeated batch), a lost restore (the restart check), a quantisation on
 the wrong scale, a non-finite residual and a wrong int8 sum (the
 compression checks)."""
 
+from _torch_env import load_chip_smoke  # first: one torch thread
 import functools
-import importlib.util
-import pathlib
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 #: the reduced DIN at a few requests and small batches
 SIZES = dict(requests=4, batch=8, bulk=64, candidates=64, train_batch=32,
@@ -30,15 +27,7 @@ SIZES = dict(requests=4, batch=8, bulk=64, candidates=64, train_batch=32,
 
 @pytest.fixture(scope="module")
 def smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    path_before = list(sys.path)
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path[:] = path_before
-    return mod
+    return load_chip_smoke()
 
 
 def _phase(smoke, tmp_path, **sizes):

@@ -6,6 +6,7 @@ on a world of one, ``device_mesh``'s refusal of a size that differs from
 the world, the meshes, and the dry-run CLI (``--mesh both``, ``--mesh
 card``, an ``--all`` subset) with its record keys."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import json
 import os
 import socket

@@ -11,6 +11,7 @@ records the spans must appear in its trace on the engine's worker
 thread — and nothing at all without a tracer.
 """
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import itertools
 import json
 import os

@@ -12,6 +12,7 @@ bytes, file bytes, printed lines that carry no time or loss) are equal;
 GCN and LM losses step by step within rtol 1e-5; DIN scores within 1e-5.
 """
 
+from _torch_env import load_chip_smoke  # first: one torch thread
 import dataclasses
 import filecmp
 import functools
@@ -67,19 +68,6 @@ CPU_ARGV = {
 #: losses (compared as numbers) and the access policy's reason (worded
 #: for the GPU in the port)
 TIMED = re.compile(r"ms\b|/s\b|speedup|loss|regime:")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the examples' small models gain nothing from
-    more, and under the suite's parallel workers more threads than cores
-    slowed this file tenfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _with_workdir(name: str, argv: list, workdir) -> list:
@@ -267,15 +255,7 @@ def test_examples_take_the_reference_flags_and_the_device(name, tmp_path):
 
 @pytest.fixture(scope="module")
 def smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    path_before = list(sys.path)
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path[:] = path_before
-    return mod
+    return load_chip_smoke()
 
 
 def _runs(smoke, *labels) -> tuple:
@@ -383,31 +363,44 @@ def _run_of(smoke, label):
     return run
 
 
-def test_launch_check_detects_a_missing_launch(smoke):
-    """K1 once a streamed partition on the card, K2 and its backward
-    ``k2_per_step`` a step (K2's forward four times: the degrees, the
-    two layers' sums and layer 1's gather's backward): a run a launch
-    short fails."""
+def test_launch_check_detects_a_missing_launch(smoke, monkeypatch):
+    """K1 once a streamed partition on the card, K2 and its backward as
+    the run's requests ask (here those of one step of the GNN example's
+    model, counted on CPU tensors with the device check made true): a
+    run a launch short fails."""
+    from repro_torch.graph import rmat
+    from repro_torch.launch.data_gnn import full_graph_batch
+    from repro_torch.models.gnn import gcn
+
+    none = smoke.KernelRequests()
     qs_run = _run_of(smoke, "quickstart_compbin")
     qs = {"stream": {"partitions": 9}}
-    want = smoke.example_launches(qs_run, None, qs, {}, True)
+    want = smoke.example_launches(qs_run, None, qs, {}, True, none)
     assert want == {"k1": 9, "k2": 0, "k2_grad": 0, "k3": 0}
-    assert smoke.example_launches(qs_run, None, qs, {}, False)["k1"] == 0
+    assert smoke.example_launches(qs_run, None, qs, {}, False,
+                                  none)["k1"] == 0
     smoke.check_example_launches("quickstart", dict(want), want)
     with pytest.raises(AssertionError, match="kernel launches"):
         smoke.check_example_launches("quickstart", dict(want, k1=8), want)
-    gnn = _example("train_gnn_from_compbin_torch")
+    cfg = _example("train_gnn_from_compbin_torch").CONFIG
+    batch = full_graph_batch("gcn-cora", cfg, rmat(6, 4, seed=1),
+                             np.random.default_rng(0), device="cpu")
+    params = gcn.init_params(cfg, torch.Generator().manual_seed(0))
+    monkeypatch.setattr(smoke, "_on_card", lambda t: True)
+    with smoke.kernel_requests() as asked:
+        smoke.loss_and_grads(lambda p: gcn.loss_fn(p, batch, cfg), params)
     args = types.SimpleNamespace(steps=60, sampled=False)
     r = {"hosts": [{"partitions": 9}, {"partitions": 8}]}
-    want = smoke.example_launches(_run_of(smoke, "gnn"), args, r,
-                                  {"args": (None, None, gnn.CONFIG)}, True)
-    assert want == {"k1": 17, "k2": 240, "k2_grad": 60, "k3": 0}
+    want = smoke.example_launches(_run_of(smoke, "gnn"), args, r, {}, True,
+                                  asked)
+    assert want == {"k1": 17, **asked.launches(), "k3": 0}
+    assert want["k2"] > 0 and want["k2_grad"] > 0
     with pytest.raises(AssertionError, match="kernel launches"):
         smoke.check_example_launches("gnn", dict(want, k2_grad=0), want)
     for label in ("din", "lm", "lm_fan_in"):
         assert smoke.example_launches(_run_of(smoke, label), None, {}, {},
-                                      True) == dict(want, k1=0, k2=0,
-                                                    k2_grad=0)
+                                      True, none) == dict(
+            want, k1=0, k2=0, k2_grad=0)
 
 
 def test_gnn_parity_check_detects_a_dropped_edge(smoke, tmp_path,

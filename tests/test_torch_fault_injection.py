@@ -15,6 +15,7 @@ race.  The engine arm: a query engine over a faulty mount raises
 and answers again once the fault has passed.
 """
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import errno
 import types
 

@@ -3,6 +3,7 @@ files byte for byte, both packages write the same bytes for the same
 matrix, and rows read through either package's reader (plain file or
 PG-Fuse mount) and ``gather_rows`` are equal.  Tolerance ZERO."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 import io
 import pathlib

@@ -4,6 +4,7 @@ interpret mode and against its oracle ``attention_ref``, on the same
 numpy inputs.  Tolerance as the JAX package holds its own kernel
 (``tests/test_kernels.py``): f32 rtol/atol 2e-4, bf16 2e-2."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ inputs, at the JAX package's f32 kernel tolerance (rtol/atol 2e-4).
 the CUDA launcher; its choices are checked at smollm-360m's served
 shapes and at each boundary."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

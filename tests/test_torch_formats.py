@@ -2,6 +2,7 @@
 package.  The graph file is the state the two packages share, pinned by
 ``tests/golden``.  Integer data throughout: tolerance ZERO."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import io
 import pathlib
 

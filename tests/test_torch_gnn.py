@@ -4,6 +4,7 @@ the same numpy inputs and the JAX package's own weights (carried over by
 both sides, sums in another order).  Sampler blocks and edge lists are
 integers: tolerance ZERO."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -16,6 +16,7 @@ zeros (all-zero segments: ``scatter_std``'s variance sits at the
 card's training path, whose gradient is K2's segment sum) is held bit
 for bit to autograd of the plain gather on the CPU."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

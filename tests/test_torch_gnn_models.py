@@ -14,6 +14,7 @@ relative to its max|g| (``chip_smoke.py::exact_close`` on the card).  Batches (e
 targets): equal array for array.  Training: 10 steps of the CLI's paths
 from the JAX weights, losses within rtol 1e-5 of the reference's."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -4,6 +4,7 @@ weights and request stream (logits rtol 1e-5 / atol 1e-4, integer
 engine counters equal), and against the port's own in-memory path (bit
 for bit: same code, same device)."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import json
 import pathlib
 import types

@@ -2,6 +2,7 @@
 and the port's (``device="cpu"``, so the decode takes the kernel's plain
 version).  Assembled CSR and integer counters: tolerance ZERO."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import time
 
 import numpy as np

@@ -13,6 +13,7 @@ tensor per entry on the cache's device, re-widened to an independent
 int64 array per hit; no GPU and ``device=None`` raises.
 """
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import errno
 import os
 import tempfile

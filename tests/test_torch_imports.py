@@ -2,6 +2,7 @@
 JAX package, and without a GPU its entry points raise instead of carrying
 on on the CPU."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import os
 import pathlib
 import pkgutil

@@ -5,6 +5,7 @@ weights and prompts, and the CLI serves the LM family.  Tokens: tolerance
 ZERO; last-position logits within 3e-4 (the JAX package's bound between
 its attention backends)."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import logging
 
 import jax

@@ -13,6 +13,7 @@ token windows and checkpoint leaves equal bit for bit.  The MoE cases
 assert their routing margin premise (``test_torch_moe.assert_margins``)
 on every layer's router before holding the grads."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 import logging
 import os

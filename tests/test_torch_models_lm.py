@@ -6,6 +6,7 @@ the load-balance loss positive, the published parameter counts.  Marked
 ``slow`` as the JAX package marks its own; the tier-1 parity against the
 JAX package is ``tests/test_torch_{transformer,moe,lm_train}.py``."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import pytest

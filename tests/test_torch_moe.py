@@ -18,6 +18,7 @@ test asserts that premise on its inputs (:func:`assert_margins`: each
 routing call's smallest margin above ``MARGIN``) and fails loudly, naming
 the margin, where it does not hold."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import contextlib
 import dataclasses
 

@@ -11,17 +11,14 @@ logits, the combine check and the first step's parity); a lost restore
 (the restart check); a step that does not move the params (the loss
 must fall)."""
 
+from _torch_env import load_chip_smoke  # first: one torch thread
 import dataclasses
 import functools
-import importlib.util
-import pathlib
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 MOE_KW = dict(batch=2, prompt_len=16, n_tokens=4, check_prompt_len=8,
               check_tokens=3, reduced=True)
@@ -32,25 +29,7 @@ LM_MODELS = (("smollm-360m", None, 4, 32, 4, 5),
 
 @pytest.fixture(scope="module")
 def smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    path_before = list(sys.path)
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path[:] = path_before
-    return mod
-
-
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
+    return load_chip_smoke()
 
 
 def test_moe_phase_on_cpu(smoke):
@@ -170,7 +149,7 @@ def test_combine_check_detects_a_wrong_kernel(smoke, monkeypatch):
         smoke.check_moe_combine(calls, "dbrx")
 
 
-def test_lm_train_phase_on_cpu(smoke, tmp_path, one_thread):
+def test_lm_train_phase_on_cpu(smoke, tmp_path):
     out = smoke.phase_lm_train("cpu", str(tmp_path), models=LM_MODELS,
                                reduced=True)
     assert out["k2_launches"] == out["k2_grad_launches"] == 0
@@ -192,8 +171,7 @@ def test_lm_train_phase_on_cpu(smoke, tmp_path, one_thread):
     smoke.log_lm_train(out)
 
 
-def test_lm_train_restart_checkpoints_under_its_root(smoke, tmp_path,
-                                                    one_thread):
+def test_lm_train_restart_checkpoints_under_its_root(smoke, tmp_path):
     """The restart writes its checkpoints under ``ckpt_root`` (a RAM file
     system on the card's machine: ``LM_CKPT_ROOT``), removes the one it
     resumed from once the next step is done, leaves none behind, and

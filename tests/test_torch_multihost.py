@@ -9,6 +9,7 @@ simulated hosts with the JAX package's weights carried over, 15 AdamW
 steps, each step's loss within rtol 1e-5 of the JAX package's (f32 on
 both sides; sums in another order)."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

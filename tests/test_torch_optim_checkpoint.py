@@ -11,6 +11,7 @@ bit for bit (bf16 included), manifests byte-equal.  The trainer: an
 injected failure plus restore ends bit-equal to an uninjected run (CPU,
 plain path, deterministic)."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import itertools
 import json
 import os

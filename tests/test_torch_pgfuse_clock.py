@@ -3,6 +3,7 @@ residency mask, and revokes the same blocks in the same order as the JAX
 package's snapshot walk.  Blocks, hand, reference bits and counters:
 tolerance ZERO."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import sys
 import threading
 import time

@@ -1,6 +1,7 @@
 """PG-Fuse and the placement policy: the port's copies behave exactly as
 the JAX package's.  Bytes and integer counters: tolerance ZERO."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 import itertools
 

@@ -28,6 +28,7 @@ are profiler ranges only while a profiler records, with the logits'
 bits unchanged.
 """
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import json
 import sys
 from pathlib import Path

@@ -3,6 +3,7 @@
 ``pl.pallas_call`` site to its CUDA kernel (and K2's backward), every
 example to its port, so the map cannot fall behind the tree."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import pathlib
 import re
 

@@ -2,6 +2,7 @@
 JAX package's engine and the port's (``device="cpu"``).  Answers and
 integer counters: tolerance ZERO."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

@@ -5,6 +5,7 @@ permutations, compiled ``.cbin`` / ``.lgsr`` files and GPRM sidecars
 must be equal to the reference's byte for byte, and the CLI's JSON
 report equal but for the paths."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import json
 import os
 import struct

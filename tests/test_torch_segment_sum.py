@@ -4,6 +4,7 @@ interpret mode, on the same numpy inputs.  Tolerance as the JAX package
 holds its own kernel (``tests/test_kernels.py``): f32 rtol 1e-5 / atol
 1e-4, bf16 inputs rtol 2e-2 / atol 2e-1; the result is f32 either way."""
 
+from _torch_env import load_chip_smoke  # first: one torch thread
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -231,10 +232,6 @@ def test_plan_at_the_served_shapes_and_its_limits(e, d, n, want):
 
 # --- K2's backward against the JAX package's own gradient --------------
 
-import importlib.util  # noqa: E402
-import pathlib  # noqa: E402
-import sys  # noqa: E402
-
 import jax  # noqa: E402
 
 from repro.models.gnn.layers import scatter_sum  # noqa: E402
@@ -254,16 +251,7 @@ INT32_LAYOUTS = ["served", "sorted", "permuted", "all_invalid",
 @pytest.fixture(scope="module")
 def smoke():
     """``chip_smoke.py``, for its K2 sweep and id layouts."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
-        / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    path_before = list(sys.path)
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path[:] = path_before
-    return mod
+    return load_chip_smoke()
 
 
 def _grads_match_jax(ids, n, d, rng):

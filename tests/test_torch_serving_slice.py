@@ -8,9 +8,7 @@ books, torn hot-set books, a kind that never completes).  The phases'
 plain numpy traversal is held to the pure-python CSR reference of
 ``tests/test_traversal_differential.py`` first."""
 
-import importlib.util
-import pathlib
-import sys
+from _torch_env import load_chip_smoke  # first: one torch thread
 
 import numpy as np
 import pytest
@@ -22,30 +20,10 @@ from repro_torch.query import (HotSetCache, HotSetStats,
 from tests._prop import Draw, prop
 from tests.test_traversal_differential import ref_traverse
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-
-
-_SMOKE = []
-
-
-def _load_smoke():
-    """``chip_smoke.py`` as a module, loaded once."""
-    if not _SMOKE:
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke", ROOT / "chip_smoke.py")
-        mod = importlib.util.module_from_spec(spec)
-        path_before = list(sys.path)
-        try:
-            spec.loader.exec_module(mod)
-        finally:
-            sys.path[:] = path_before
-        _SMOKE.append(mod)
-    return _SMOKE[0]
-
 
 @pytest.fixture(scope="module")
 def smoke():
-    return _load_smoke()
+    return load_chip_smoke()
 
 
 @pytest.fixture(scope="module")
@@ -101,7 +79,7 @@ def test_traversal_phase_on_cpu(smoke, small, arm):
 def test_plain_traverse_equals_the_csr_reference(draw: Draw):
     """The phases' numpy traversal reproduces the pure-python reference
     on arbitrary graphs, seeds and budgets, every field."""
-    plain_traverse = _load_smoke().plain_traverse
+    plain_traverse = load_chip_smoke().plain_traverse
     csr = draw.csr(max_edges=800)
     if csr.n_vertices == 0:
         return

@@ -11,6 +11,7 @@ reference's (zero tolerance).  The cases of
 ``tests/test_stats_merge.py`` run on the port.
 """
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import errno
 import os
 import tempfile

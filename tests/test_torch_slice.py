@@ -6,29 +6,17 @@ bit for bit (tolerance ZERO), and the served logits against the plain
 CPU path (tolerance ``GNN_TOL``; on the CPU the two are the same code, so
 the error is 0), and raises on any difference."""
 
+from _torch_env import load_chip_smoke  # first: one torch thread
 import contextlib
-import importlib.util
-import pathlib
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-
 
 @pytest.fixture(scope="module")
 def smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    path_before = list(sys.path)
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path[:] = path_before
-    return mod
+    return load_chip_smoke()
 
 
 @pytest.fixture(scope="module")
@@ -446,20 +434,7 @@ TRAIN_KW = dict(scale=10, edge_factor=8, parity_scale=9, reduced=True,
                 sampled_seeds=256, sampled_steps=4)
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: a CPU GEMM's sum order then no longer depends
-    on how many threads the BLAS picks under load, so two runs of the
-    same steps agree bit for bit."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def test_train_phase_on_cpu(smoke, tmp_path, one_thread):
+def test_train_phase_on_cpu(smoke, tmp_path):
     out = smoke.phase_train("cpu", str(tmp_path), **TRAIN_KW)
     assert out["vertices"] == 1024 and out["hosts"] == 2
     assert len(out["losses"]) == 10 and out["losses"][-1] < out["losses"][0]
@@ -777,7 +752,7 @@ def _pna_cfg():
     return get_arch("pna").make_reduced()
 
 
-def test_gnn2_phase_on_cpu(smoke, tmp_path, one_thread):
+def test_gnn2_phase_on_cpu(smoke, tmp_path):
     out = smoke.phase_gnn2("cpu", str(tmp_path), **GNN2_KW)
     srv, pt = out["serve"], out["pna_train"]
     assert srv["arch"] == "pna-reduced" and srv["max_abs_err"] == 0.0
@@ -816,21 +791,52 @@ def test_gnn2_phase_on_cpu(smoke, tmp_path, one_thread):
         "dimenet_triplets": 4, "dimenet_readout": 4}
 
 
-def test_k2_per_step_counts_every_segment_sum(smoke):
-    """The launch counts the phases assert, from the configs: a served
-    request's (the model's sums), and a training step's, whose forward
-    count adds one K2 launch a gather of a tensor that needs a
-    gradient (GCN's layer 1, PNA's and MeshGraphNet's two a layer,
-    DimeNet's triplet messages a block)."""
-    from repro_torch.configs import get_arch
-    full = {a: get_arch(a).make_config() for a in
-            ("gcn-cora", "pna", "meshgraphnet", "dimenet")}
-    assert {a: smoke.k2_sums(a, c) for a, c in full.items()} == {
-        "gcn-cora": (3, 1), "pna": (25, 12), "meshgraphnet": (15, 15),
-        "dimenet": (13, 13)}
-    assert {a: smoke.k2_per_step(a, c) for a, c in full.items()} == {
-        "gcn-cora": (4, 1), "pna": (33, 12), "meshgraphnet": (45, 15),
-        "dimenet": (19, 13)}
+def test_kernel_requests_count_what_a_step_asks(smoke, monkeypatch):
+    """A toy step's requests, counted on CPU tensors (the device check
+    made true): two segment sums with work, one on messages that need a
+    gradient, one sum with none, and a gather of a tensor that needs a
+    gradient through ``_Gather``, whose backward makes a sum of its own
+    that counts as the gather's: K2's forward three times, its backward
+    once.  The wrapped gather keeps the launch counter ``_Gather``'s
+    backward adds to by the module's name."""
+    from repro_torch.models.gnn import layers
+
+    real, before = layers.gather, layers.gather.grad_launches
+    with smoke.kernel_requests():       # as ``_Gather``'s backward counts
+        layers.gather.grad_launches += 1
+    assert real.grad_launches == before + 1
+    real.grad_launches = before
+    monkeypatch.setattr(smoke, "_on_card", lambda t: True)
+    monkeypatch.setattr(layers, "gather", layers._Gather.apply)
+    ids = torch.tensor([0, 2, 2, -1])
+    x = torch.randn(3, 4, requires_grad=True)
+    m = torch.randn(4, 4, requires_grad=True)
+    with smoke.kernel_requests() as asked:
+        msgs = m * layers.gather(x, ids)
+        deg = layers.segment_sum(torch.ones(4, 1), ids, 3)
+        none = layers.segment_sum(torch.ones(0, 4), ids[:0], 3)
+        loss = (layers.segment_sum(msgs, ids, 3) / deg.clamp(min=1)).sum()
+        loss.backward()
+    assert asked == smoke.KernelRequests(sums=2, grad_sums=1, grad_gathers=1)
+    assert asked.launches() == {"k2": 3, "k2_grad": 1}
+    assert not none.any() and x.grad is not None and m.grad is not None
+
+
+@pytest.mark.parametrize("phase", ["gnn", "train"])
+def test_a_launch_short_of_the_requests_fails_a_phase(smoke, small, tmp_path,
+                                                      monkeypatch, phase):
+    """The first segment sum counted as asked of the card (the device
+    check true once) where no kernel launched: the served requests' or
+    the first training step's K2 launches one short of their requests
+    must fail the phase."""
+    asks = iter([True])
+    monkeypatch.setattr(smoke, "_on_card", lambda t: next(asks, False))
+    with pytest.raises(AssertionError, match="K2 launches"):
+        if phase == "gnn":
+            smoke.phase_gnn("cpu", small[2], scale=10, reduced=True,
+                            n_requests=1, batch=16)
+        else:
+            smoke.phase_train("cpu", str(tmp_path), **TRAIN_KW)
 
 
 def test_gnn2_pna_serving_detects_wrong_logits(smoke, tmp_path, monkeypatch):

@@ -9,6 +9,7 @@ by step for 15 steps, params within rtol 1e-4 / atol 1e-6 at the end
 (f32 both sides, sums in another order).  Restart: an injected failure
 plus restore ends bit-equal to an uninjected run (CPU, deterministic)."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import logging
 
 import jax
@@ -137,21 +138,8 @@ def test_steps_match_the_reference(workdir, cfgs, mode):
         assert losses[-1] < losses[0], losses
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: a CPU GEMM's sum order then no longer depends
-    on how many threads the BLAS picks under load, so two runs of the
-    same steps agree bit for bit."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
 def test_cli_trains_full_graph_on_two_hosts_and_restarts(tmp_path, workdir,
-                                                          caplog, one_thread):
+                                                          caplog):
     """``--full-graph --hosts 2`` ends with the reference's ``done:``
     line and a falling loss; an injected failure restored from a
     checkpoint ends bit-equal to the uninjected run."""

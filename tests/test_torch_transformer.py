@@ -5,6 +5,7 @@ package's own weights (carried over by
 Tolerance 3e-4 (rtol and atol): the JAX package's own bound between its
 attention backends (``tests/test_models_lm.py``)."""
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

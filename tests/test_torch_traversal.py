@@ -12,6 +12,7 @@ cases of ``tests/test_traversal_{differential,service,loadgen}.py`` run
 on the port; each compares with the reference where both can run it.
 """
 
+import _torch_env  # noqa: F401  (first: one torch thread)
 import errno
 import os
 import tempfile
