@@ -120,7 +120,8 @@ from repro_torch.kernels.flash_attention import (attention_bshd,  # noqa: E402
                                                  flash_attention, plan)
 from repro_torch.kernels.segment_sum import plan as k2_plan  # noqa: E402
 from repro_torch.kernels.segment_sum import (  # noqa: E402
-    segment_sum, segment_sum_backward, segment_sum_grad_ref, segment_sum_ref)
+    gather_scale_sum, gather_scale_sum_ref, segment_sum, segment_sum_backward,
+    segment_sum_grad_ref, segment_sum_ref)
 from repro_torch.kernels.segment_sum.ops import (  # noqa: E402
     DESIGNS as K2_DESIGNS, GRAD_VECS, _segment_sum_backward_vec,
     _segment_sum_design, grad_vector_width)
@@ -1666,6 +1667,132 @@ def measure_segment_sum_full_graph(ids: torch.Tensor, n: int, widths,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
+#: the GCN cell's configuration (``train.gcn-products.full``): its
+#: feature width, its Kronecker edge law and its real node count
+GCN_CELL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "perfbench", "configs",
+                               "gcn-cora.ogb-products.json")
+
+#: edges a chunk of :func:`plain_gather_scale_sum` holds: four E x D f32
+#: copies of 8 M edges at D 100 take about 13 GB
+PLAIN_CHUNK_EDGES = 8 << 20
+
+
+def fused_bytes(e: int, d: int, nx: int, n: int) -> int:
+    """Bytes the fused gather, scale and sum must move on its own inputs
+    and output: x f32[NX, D] read once, src, dst (int32) and w (f32)
+    read, the N*D f32 sums written.  Lower than :func:`k2_bytes`, which
+    counts each valid edge's row once (the messages the unfused chain
+    writes)."""
+    return 4 * nx * d + 12 * e + 4 * n * d
+
+
+def plain_gather_scale_sum(x: torch.Tensor, src: torch.Tensor,
+                           w: torch.Tensor, dst: torch.Tensor, n: int,
+                           chunk: int = PLAIN_CHUNK_EDGES) -> torch.Tensor:
+    """The fused forward's plain version (:func:`gather_scale_sum_ref`)
+    over chunks of ``chunk`` edges, each chunk's sums added into the
+    first's: one call at the GCN cell's size would hold four E x D f32
+    copies (about 99 GB).  Below ``chunk`` edges it is one call; on
+    small-integer ``x`` and ``w`` every order of its adds gives the same
+    f32 sums."""
+    out = gather_scale_sum_ref(x, src[:chunk], w[:chunk], dst[:chunk], n)
+    for at in range(chunk, src.numel(), chunk):
+        part = slice(at, at + chunk)
+        out += gather_scale_sum_ref(x, src[part], w[part], dst[part], n)
+    return out
+
+
+def check_gather_scale_sum(x: torch.Tensor, src: torch.Tensor,
+                           w: torch.Tensor, dst: torch.Tensor,
+                           n: int) -> tuple[torch.Tensor, float]:
+    """The fused gather, scale and sum (:func:`gather_scale_sum`: the
+    kernel on the card) bit for bit against its plain version on the same
+    device (:func:`plain_gather_scale_sum`); ``x`` and ``w`` hold small
+    integers, so every order of the adds gives the same f32 sums.  On the
+    card the call counts once on ``segment_sum.launches`` and on
+    ``segment_sum.gather_launches`` where it has work (E x D x N > 0).
+    Returns the plain version's sums and the largest difference."""
+    before = segment_sum.launches, segment_sum.gather_launches
+    got = gather_scale_sum(x, src, w, dst, n)
+    work = int(x.is_cuda and src.numel() * x.shape[1] * n > 0)
+    assert (segment_sum.launches - before[0],
+            segment_sum.gather_launches - before[1]) == (work, work), \
+        "gather_scale_sum launches != one a call with work"
+    want = plain_gather_scale_sum(x, src, w, dst, n)
+    assert got.shape == want.shape and torch.equal(got, want), \
+        f"gather_scale_sum (E={src.numel()}, D={x.shape[1]}, N={n}) != " \
+        f"the plain version"
+    return want, float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def measure_gather_scale_sum(flush, gen: torch.Generator) -> dict:
+    """The fused gather, scale and sum at the GCN cell's layer 0: x
+    f32[OGB_N, d_in] (the cell's padded rows), the cell's Kronecker edges
+    (:data:`GCN_CELL_CONFIG`) both ways, each inverse right after its
+    edge, in OGB_E slots (-1 in the padding), int32 ids.  Small-integer
+    ``x`` and ``w``, held bit for bit to the plain version in chunks
+    (:func:`check_gather_scale_sum`).  The kernel's CUDA-event ms, the
+    vector width it took, its bounds at :func:`k2_bytes` (each valid
+    edge's row read) and at :func:`fused_bytes` (its own inputs and
+    output), and beside it the ms of the plain version in chunks, of the
+    unfused chain as the seam falls back to it (today's path at this
+    call: the gather, its zero-fill, the product, K2 ``atomic``) and of
+    the library call ``torch.sparse.mm`` of the coalesced COO (dst,
+    src, w) by x (its sums' largest difference from the plain version
+    recorded, not asserted)."""
+    from perfbench.gen import kronecker
+    from repro_torch.models.gnn.layers import weighted_scatter_sum_unfused
+
+    with open(GCN_CELL_CONFIG) as f:
+        cfg = json.load(f)
+    n, d, e = OGB_N, cfg["d_in"], OGB_E
+    a, b = kronecker.bounded_edges(cfg["n_nodes"], cfg["undirected_edges"],
+                                   cfg["edges"]["scale"],
+                                   cfg["edges"]["seed"], "cuda")
+    src = torch.full((e,), -1, dtype=torch.int32, device="cuda")
+    dst = torch.full((e,), -1, dtype=torch.int32, device="cuda")
+    real = 2 * a.numel()
+    src[0:real:2], src[1:real:2] = a, b
+    dst[0:real:2], dst[1:real:2] = b, a
+    del a, b
+    x = torch.randint(-4, 5, (n, d), generator=gen, device="cuda",
+                      dtype=torch.float32)
+    w = torch.randint(-2, 3, (e,), generator=gen, device="cuda",
+                      dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    want, err = check_gather_scale_sum(x, src, w, dst, n)
+    ms = time_cuda(lambda: gather_scale_sum(x, src, w, dst, n), flush=flush)
+    plain = time_cuda(lambda: plain_gather_scale_sum(x, src, w, dst, n),
+                      flush=flush, reps=3, warmup=1)
+    unfused = time_cuda(
+        lambda: weighted_scatter_sum_unfused(x, src, w, dst, n),
+        flush=flush, reps=5)
+    torch.cuda.empty_cache()
+    live = (src >= 0) & (dst >= 0) & (dst < n)
+    valid = int(live.sum())
+    coo = torch.sparse_coo_tensor(
+        torch.stack((dst[live].long(), src[live].long().clamp(max=n - 1))),
+        w[live], (n, n)).coalesce()
+    del live
+    lib_err = float((torch.sparse.mm(coo, x) - want).abs().max())
+    lib = time_cuda(lambda: torch.sparse.mm(coo, x), flush=flush, reps=5)
+    bms, by = k2_bound_ms(e, d, n, valid)
+    nbytes = k2_bytes(e, d, n, valid)
+    own = fused_bytes(e, d, n, n)
+    vec = grad_vector_width(d, x, x)      # and the output: a fresh one
+    del x, w, src, dst, want, coo
+    torch.cuda.empty_cache()
+    return {"e": e, "d": d, "n": n, "valid_edges": valid, "vec": vec,
+            "ms": ms, "unfused_ms": unfused, "plain_ms": plain,
+            "library_ms": lib, "library_max_abs_err": lib_err,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+            "own_bytes": own,
+            "own_bound_ms": own / HBM_BYTES_PER_S * 1e3,
+            "gb_per_s": nbytes / (ms * 1e-3) / 1e9, "max_abs_err": err,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
 def k2_grad_bound_ms(e: int, d: int, rows: int,
                      id_bytes: int) -> tuple[float, str]:
     """Least time for K2's backward on this data: each of the ``rows``
@@ -1996,6 +2123,7 @@ import importlib.util, json, sys
 import numpy as np, torch
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 cs = importlib.util.module_from_spec(spec)
+sys.modules["chip_smoke"] = cs      # its dataclasses look their module up
 spec.loader.exec_module(cs)
 out = {}
 for label, path, n, d, backward in json.loads(sys.argv[2]):
@@ -2251,34 +2379,41 @@ EXACT_FACTOR = 2.0
 
 
 @contextlib.contextmanager
-def swapped_kernel_ops(sums, gathers):
+def swapped_kernel_ops(sums, gathers, fused):
     """Within the block the seams where the models ask for K2, each
     holding a function ``f``, hold ``sums(f)`` (``layers.segment_sum``,
-    ``tf.segment_sum``) or ``gathers(f)`` (``layers.gather``)."""
+    ``tf.segment_sum``), ``gathers(f)`` (``layers.gather``) or
+    ``fused(f)`` (``layers.gather_scale_sum``, the fused forward that
+    ``layers.weighted_scatter_sum`` takes)."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.gnn import layers
 
-    saved = layers.segment_sum, tf.segment_sum, layers.gather
+    saved = (layers.segment_sum, tf.segment_sum, layers.gather,
+             layers.gather_scale_sum)
     layers.segment_sum, tf.segment_sum = sums(saved[0]), sums(saved[1])
     layers.gather = gathers(saved[2])
+    layers.gather_scale_sum = fused(saved[3])
     try:
         yield
     finally:
-        layers.segment_sum, tf.segment_sum, layers.gather = saved
+        (layers.segment_sum, tf.segment_sum, layers.gather,
+         layers.gather_scale_sum) = saved
 
 
 @contextlib.contextmanager
 def plain_segment_sum(fn=None):
     """Every segment sum of the GNNs and of the MoE combine on ``fn``
-    (default: K2's plain version, autograd through ``index_add_``), and
-    every GNN gather on its plain version (autograd through
-    ``index_put_``, where the card's training step sums the gather's
-    gradient on K2), on any device: the yardstick the kernel path is
-    held against."""
+    (default: K2's plain version, autograd through ``index_add_``), every
+    GNN gather on its plain version (autograd through ``index_put_``,
+    where the card's training step sums the gather's gradient on K2), and
+    every fused gather, scale and sum on those two
+    (``layers.weighted_scatter_sum_unfused``), on any device: the
+    yardstick the kernel path is held against."""
     from repro_torch.models.gnn import layers
 
     with swapped_kernel_ops(lambda _: fn or segment_sum_ref,
-                            lambda _: layers.gather_plain):
+                            lambda _: layers.gather_plain,
+                            lambda _: layers.weighted_scatter_sum_unfused):
         yield
 
 
@@ -2291,8 +2426,9 @@ def _on_card(t: torch.Tensor) -> bool:
 class KernelRequests:
     """What the models asked of K2 on the card within
     :func:`kernel_requests`: ``sums``, segment sums with work (E x D x N
-    > 0); ``grad_sums``, those of messages that need a gradient (grad
-    mode on); ``grad_gathers``, gathers with work of such a tensor."""
+    > 0), the fused gather, scale and sums among them; ``grad_sums``,
+    those of messages that need a gradient (grad mode on);
+    ``grad_gathers``, gathers with work of such a tensor."""
     sums: int = 0
     grad_sums: int = 0
     grad_gathers: int = 0
@@ -2311,7 +2447,8 @@ def kernel_requests():
     """Counts in a :class:`KernelRequests` what the models ask of the K2
     ops within the block (:func:`swapped_kernel_ops`; not nested), every
     call run as it would be.  The sum a gather's backward makes is
-    counted as the gather, where it was asked for."""
+    counted as the gather, where it was asked for; a fused gather, scale
+    and sum with work as one sum (it needs no gradient)."""
     from repro_torch.models.gnn import layers
 
     asked, lock = KernelRequests(), threading.Lock()
@@ -2339,7 +2476,15 @@ def kernel_requests():
         counted.__dict__ = real.__dict__  # _Gather bumps grad_launches here
         return counted
 
-    with swapped_kernel_ops(sums, gathers):
+    def fused(real):
+        def counted(x, src, w, dst, n):
+            if x.shape[1] * src.numel() * n and _on_card(x):
+                with lock:
+                    asked.sums += 1
+            return real(x, src, w, dst, n)
+        return counted
+
+    with swapped_kernel_ops(sums, gathers, fused):
         yield asked
 
 
@@ -5485,7 +5630,9 @@ def measure_k3_long(flush, gen, workdir: str, rows: int = 8) -> dict:
 
 def measure_cells_kernels(workdir: str) -> dict:
     """K2 and its backward at ogbn-products' full-graph shapes (uniform
-    ids over the real nodes, -1 in the padded edge slots), K1 at the two
+    ids over the real nodes, -1 in the padded edge slots), K2's fused
+    forward at the GCN cell's layer 0 (:func:`measure_gather_scale_sum`,
+    Kronecker ids), K1 at the two
     ``edges_compbin`` cells' shapes and K3 at the 32k prefill's, each
     beside its bound, plain version and library call."""
     gen = torch.Generator(device="cuda")
@@ -5497,12 +5644,13 @@ def measure_cells_kernels(workdir: str) -> dict:
     k2g = measure_segment_sum_grad(ids, 16, OGB_N, flush, gen)
     del ids
     torch.cuda.empty_cache()
+    k2f = measure_gather_scale_sum(flush, gen)
     k1 = {label: measure_kernel(random_packed(n, b, gen), b, flush)
           for label, (n, b) in K1_CELL_SHAPES.items()}
     k3 = measure_k3_long(flush, gen, workdir)
     del flush
     torch.cuda.empty_cache()
-    return {"k2": k2, "k2_grad": k2g, "k1": k1, "k3": k3}
+    return {"k2": k2, "k2_grad": k2g, "k2_gather": k2f, "k1": k1, "k3": k3}
 
 
 def cells_slice(device, workdir: str) -> dict:
@@ -5559,6 +5707,20 @@ def cells_slice(device, workdir: str) -> dict:
             f"{m} {v['ms']:.4f}" for m, v in k2["designs"].items())
         + f"); bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}); plain "
         f"{k2['plain_ms']:.4f} ms; index_add_ {k2['library_ms']:.4f} ms")
+    k2f = kern["k2_gather"]
+    log(f"[kernel] gather_scale_sum (k2_gather_atomic) at the GCN cell's "
+        f"layer 0: x f32[{k2f['n']},{k2f['d']}] by int32[{k2f['e']}] "
+        f"Kronecker ids both ways ({k2f['valid_edges']} valid): "
+        f"{k2f['ms']:.4f} ms at VEC {k2f['vec']} "
+        f"({k2f['gb_per_s']:.1f} GB/s); bound {k2f['bound_ms']:.4f} ms "
+        f"({k2f['bound_by']}, each valid edge's row), "
+        f"{k2f['own_bound_ms']:.4f} ms (its own inputs and output); plain "
+        f"{k2f['plain_ms']:.4f} ms (in chunks; max abs err "
+        f"{k2f['max_abs_err']}); the unfused chain (gather, where, product, "
+        f"K2 atomic) {k2f['unfused_ms']:.4f} ms; torch.sparse.mm "
+        f"{k2f['library_ms']:.4f} ms (max abs err "
+        f"{k2f['library_max_abs_err']}); peak "
+        f"{k2f['max_memory_allocated']} B")
     log(f"[kernel] segment_sum backward at ogbn-products' size, uniform "
         f"ids: {k2g['ms']:.4f} ms "
         f"at VEC {k2g['vec']}; bound {k2g['bound_ms']:.4f} ms; plain "
@@ -5595,12 +5757,20 @@ def cells_kernel_entry(r: dict, name: str) -> dict:
                                  f"int32[{k['n']}]", **{x: k[x] for x in keys}}
                 for label, k in kern["k1"].items()} | {"launches": main["k1"]}
     if name == "segment_sum":
-        k = kern["k2"]
+        k, f = kern["k2"], kern["k2_gather"]
         return {"ogb_products": {"shape": f"f32[{k['e']},16] by "
                                           f"int32[{k['e']}] -> "
                                           f"f32[{k['n']},16]",
                                  "ids": CELL_IDS, "design": k["design"],
                                  **{x: k[x] for x in keys}},
+                "gcn_cell_layer0_fused": {
+                    "shape": f"x f32[{f['n']},{f['d']}] by int32[{f['e']}] "
+                             f"-> f32[{f['n']},{f['d']}]",
+                    "ids": "the cell's Kronecker edges, both ways",
+                    "kernel": "k2_gather_atomic", "vec": f["vec"],
+                    "unfused_ms": f["unfused_ms"],
+                    "own_bound_ms": f["own_bound_ms"],
+                    **{x: f[x] for x in keys}},
                 "launches": main["k2"]}
     if name == "segment_sum_backward":
         k = kern["k2_grad"]

@@ -89,6 +89,41 @@
 // no host sync, nothing allocated; the result is the plain version's bit
 // for bit.
 //
+// The fused forward (gather_scale_sum_launch, kernel k2_gather_atomic)
+// sums scaled rows of x without writing any message:
+//
+//     out[dst[e], :] += w[e] * x[min(src[e], NX-1), :]
+//                                 for src[e] >= 0 and 0 <= dst[e] < N
+//
+// which is segment_sum(gather(x, src) * w[:, None], dst, N) with the
+// gather's clamp, in one pass.  It replaces no TPU kernel: the JAX
+// package writes the E x D messages and sums them.  GCN's layer 0 needs
+// no gradient of x or w, so nothing ever reads those messages; at
+// ogbn-products' size (E = 61.9 M, D = 100) the unfused chain writes
+// three E x D f32 tensors of 24.7 GB (the gather, its zero-fill of
+// padding, the product) and K2 reads one back.
+//
+// Bound: memory, two ways.  Counted as the segment sum it replaces, the
+// valid edges' x rows, the E ids and the N*D sums: (4*E_valid*D + 4*E +
+// 4*N*D) bytes over HBM bandwidth (the bound k2_roofline.gcn reads; the
+// w and second id stream, 8 more bytes an edge, left out).  Counted on
+// its own inputs and output, x read once, 12 bytes an edge and the sums
+// written: (4*NX*D + 12*E + 4*N*D), ten times lower at ogbn-products'
+// size, reached only where the rows an edge reads stay in L2.  The
+// design is k2_grad's row walk with atomics at its end:
+//   - Vector width VEC (4, 2 or 1 floats), the widest D and the x and
+//     out pointers allow (ops.py::grad_vector_width's rule): a float4
+//     load of x and one sm_90 vector atomicAdd (a fire-and-forget
+//     reduction in L2) of 16 bytes.  D = 100 moves a row in 25 vectors.
+//   - An edge's src, dst and w are loaded once a row (the lanes of a
+//     row read one address), never once an element; no division.
+//   - Loads in flight: each thread holds kGatherRows edges, their ids
+//     first, then their x vectors (__ldg), then the adds.
+//   - 64-bit row offsets; one launch, no host sync, nothing allocated,
+//     into an output the wrapper zero-fills.  Each product w[e] * x is
+//     the unfused chain's single f32 multiply; only the order of the
+//     atomic adds differs, as it does from run to run of k2_atomic.
+//
 // Plain C interface (loaded with ctypes): the launcher enqueues on the
 // stream it is given, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() so a refused launch surfaces in the caller.
@@ -127,6 +162,9 @@ constexpr unsigned kAll = 0xffffffffu;
 // the first store), and the grid's cap in waves of resident blocks
 constexpr int kGradRows = 4;
 constexpr int kGradWaves = 4;
+
+// k2_gather_atomic: edges a thread holds at once, likewise
+constexpr int kGatherRows = 4;
 
 template <typename Id>
 __global__ void __launch_bounds__(kThreads)
@@ -189,6 +227,67 @@ k2_grad(const float* __restrict__ grad, const Id* __restrict__ ids,
 #pragma unroll
             for (int j = 0; j < kGradRows; ++j)
                 if (row[j] < e) __stcs(o + row[j] * dv + c, x[j]);
+        }
+    }
+}
+
+// v * s, one f32 multiply an element.
+__device__ __forceinline__ float scaled(float v, float s) { return v * s; }
+__device__ __forceinline__ float2 scaled(float2 v, float s) {
+    return make_float2(v.x * s, v.y * s);
+}
+__device__ __forceinline__ float4 scaled(float4 v, float s) {
+    return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+}
+
+// Fused forward, rows of dv = D/VEC vectors: out[dst[r]] += w[r] *
+// x[min(src[r], nx-1)] where src[r] >= 0 and dst[r] lies in [0, n).  The
+// lanes cover edges as k2_grad's cover rows: lane `lane` takes edge slot
+// lane >> lpr_shift, columns (lane & (lpr-1)) + k*lpr; a warp step takes
+// kGatherRows groups of 32 >> lpr_shift consecutive edges.
+template <typename Id, int VEC>
+__global__ void __launch_bounds__(kThreads)
+k2_gather_atomic(const float* __restrict__ x, const Id* __restrict__ src,
+                 const Id* __restrict__ dst, const float* __restrict__ w,
+                 float* __restrict__ out, long long e, long long dv,
+                 long long nx, long long n, int lpr_shift) {
+    using V = typename GradVec<VEC>::T;
+    const V* __restrict__ xv = reinterpret_cast<const V*>(x);
+    V* __restrict__ o = reinterpret_cast<V*>(out);
+    const int lane = threadIdx.x & 31;
+    const int lpr = 1 << lpr_shift;
+    const int slots = 32 >> lpr_shift;           // edges side by side
+    const int slot = lane >> lpr_shift;
+    const int col0 = lane & (lpr - 1);
+    const long long step = static_cast<long long>(slots) * kGatherRows;
+    const long long warps =
+        static_cast<long long>(gridDim.x) * (kThreads / 32);
+    for (long long base = (static_cast<long long>(blockIdx.x) * kThreads
+                           + threadIdx.x) / 32 * step;
+         base < e; base += warps * step) {
+        long long from[kGatherRows], to[kGatherRows];
+        float scale[kGatherRows];
+#pragma unroll
+        for (int j = 0; j < kGatherRows; ++j) {
+            const long long r = base + j * slots + slot;
+            const long long s =
+                r < e ? static_cast<long long>(__ldg(src + r)) : -1;
+            const long long t =
+                r < e ? static_cast<long long>(__ldg(dst + r)) : -1;
+            const bool live = s >= 0 && t >= 0 && t < n;
+            from[j] = live ? (s < nx ? s : nx - 1) * dv : -1;
+            to[j] = live ? t * dv : -1;
+            scale[j] = live ? __ldg(w + r) : 0.0f;
+        }
+        for (long long c = col0; c < dv; c += lpr) {
+            V v[kGatherRows];
+#pragma unroll
+            for (int j = 0; j < kGatherRows; ++j)
+                v[j] = from[j] >= 0 ? __ldg(xv + from[j] + c) : V{};
+#pragma unroll
+            for (int j = 0; j < kGatherRows; ++j)
+                if (to[j] >= 0)
+                    atomicAdd(o + to[j] + c, scaled(v[j], scale[j]));
         }
     }
 }
@@ -448,24 +547,46 @@ int launch(const float* msgs, const Id* ids, float* out, long long e,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Id, int VEC>
-int launch_grad_vec(const float* grad, const Id* ids, float* out,
-                    long long e, long long d, long long n, cudaStream_t st) {
-    const long long dv = d / VEC;
-    int shift = 0;
-    while (shift < 5 && (1LL << shift) < dv) ++shift;
+// The row walk's launch shape for rows of dv vectors: *shift = log2 of
+// the lanes a row (the smallest power of two >= dv, at most 32), and
+// *blocks enough blocks for e rows at `per_thread` rows a thread, capped
+// at kGradWaves waves of resident blocks (the kernels stride beyond).
+cudaError_t row_walk_grid(long long e, long long dv, int per_thread,
+                          int* shift, long long* blocks) {
+    *shift = 0;
+    while (*shift < 5 && (1LL << *shift) < dv) ++*shift;
     const long long rows_per_block =
-        static_cast<long long>(kThreads / 32) * (32 >> shift) * kGradRows;
+        static_cast<long long>(kThreads / 32) * (32 >> *shift) * per_thread;
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
     const long long cap =
         static_cast<long long>(sms) * (2048 / kThreads) * kGradWaves;
-    long long blocks = (e + rows_per_block - 1) / rows_per_block;
-    if (blocks > cap) blocks = cap;
+    *blocks = (e + rows_per_block - 1) / rows_per_block;
+    if (*blocks > cap) *blocks = cap;
+    return cudaSuccess;
+}
+
+// Whether `vec` is a width of 1, 2 or 4 floats that divides d and whose
+// 4*vec bytes both pointers are aligned to.
+bool vector_fits(int vec, long long d, const void* a, const void* b) {
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a)
+                           | reinterpret_cast<uintptr_t>(b);
+    return (vec == 1 || vec == 2 || vec == 4) && d % vec == 0
+           && ptrs % (4 * vec) == 0;
+}
+
+template <typename Id, int VEC>
+int launch_grad_vec(const float* grad, const Id* ids, float* out,
+                    long long e, long long d, long long n, cudaStream_t st) {
+    const long long dv = d / VEC;
+    int shift = 0;
+    long long blocks = 0;
+    const cudaError_t err = row_walk_grid(e, dv, kGradRows, &shift, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
     k2_grad<Id, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         grad, ids, out, e, dv, n, shift);
     return static_cast<int>(cudaGetLastError());
@@ -474,15 +595,43 @@ int launch_grad_vec(const float* grad, const Id* ids, float* out,
 template <typename Id>
 int launch_grad(const float* grad, const Id* ids, float* out, long long e,
                 long long d, long long n, int vec, cudaStream_t st) {
-    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(grad)
-                           | reinterpret_cast<uintptr_t>(out);
-    if ((vec != 1 && vec != 2 && vec != 4) || d % vec != 0
-        || ptrs % (4 * vec) != 0)
+    if (!vector_fits(vec, d, grad, out))
         return static_cast<int>(cudaErrorInvalidValue);
     if (e * d == 0) return 0;
     if (vec == 4) return launch_grad_vec<Id, 4>(grad, ids, out, e, d, n, st);
     if (vec == 2) return launch_grad_vec<Id, 2>(grad, ids, out, e, d, n, st);
     return launch_grad_vec<Id, 1>(grad, ids, out, e, d, n, st);
+}
+
+template <typename Id, int VEC>
+int launch_gather_vec(const float* x, const Id* src, const Id* dst,
+                      const float* w, float* out, long long e, long long d,
+                      long long nx, long long n, cudaStream_t st) {
+    const long long dv = d / VEC;
+    int shift = 0;
+    long long blocks = 0;
+    const cudaError_t err =
+        row_walk_grid(e, dv, kGatherRows, &shift, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k2_gather_atomic<Id, VEC>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+            x, src, dst, w, out, e, dv, nx, n, shift);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Id>
+int launch_gather(const float* x, const Id* src, const Id* dst,
+                  const float* w, float* out, long long e, long long d,
+                  long long nx, long long n, int vec, cudaStream_t st) {
+    if (!vector_fits(vec, d, x, out))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (e * d * n == 0) return 0;
+    if (nx == 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (vec == 4)
+        return launch_gather_vec<Id, 4>(x, src, dst, w, out, e, d, nx, n, st);
+    if (vec == 2)
+        return launch_gather_vec<Id, 2>(x, src, dst, w, out, e, d, nx, n, st);
+    return launch_gather_vec<Id, 1>(x, src, dst, w, out, e, d, nx, n, st);
 }
 
 }  // namespace
@@ -534,6 +683,37 @@ extern "C" int segment_sum_grad_launch(const void* grad, const void* ids,
                            vec, st);
     return launch_grad(g, static_cast<const int32_t*>(ids), o, e, d, n, vec,
                        st);
+}
+
+// The fused forward: add w[e] * x[min(src[e], nx-1)] into out[dst[e]]
+// for every edge e with src[e] >= 0 and dst[e] in [0, n); `x` (device
+// pointer, f32[nx, d] row-major), `src` and `dst` (device pointers, e
+// ids each, int64 if `ids_64`, else int32), `w` (device pointer,
+// f32[e]), `out` (device pointer, f32[n, d], zero-filled by the caller),
+// on `stream`, in vectors of `vec` floats.  Returns 0 on success, a
+// cudaError_t otherwise (cudaErrorInvalidValue for a negative size, n or
+// nx >= 2^31, nx = 0 under an edge with work, or a `vec` other than 1, 2
+// or 4, one that does not divide d, or one whose 4*vec bytes `x` or
+// `out` is not aligned to).
+extern "C" int gather_scale_sum_launch(const void* x, const void* src,
+                                       const void* dst, int ids_64,
+                                       const void* w, void* out, long long e,
+                                       long long d, long long nx, long long n,
+                                       int vec, void* stream) {
+    if (e < 0 || d < 0 || nx < 0 || n < 0 || n >= (1LL << 31)
+        || nx >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto* xs = static_cast<const float*>(x);
+    const auto* ws = static_cast<const float*>(w);
+    auto* o = static_cast<float*>(out);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (ids_64)
+        return launch_gather(xs, static_cast<const int64_t*>(src),
+                             static_cast<const int64_t*>(dst), ws, o, e, d,
+                             nx, n, vec, st);
+    return launch_gather(xs, static_cast<const int32_t*>(src),
+                         static_cast<const int32_t*>(dst), ws, o, e, d, nx,
+                         n, vec, st);
 }
 
 // Text of a cudaError_t, for the wrapper's exception message.

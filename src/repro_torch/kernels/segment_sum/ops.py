@@ -6,6 +6,8 @@ in edge order and writes it once, ``atomic`` adds every message element
 into a zero-filled output.  Where the messages require grad, the call
 goes through a ``torch.autograd.Function`` whose backward is the same
 file's gather kernel (:func:`segment_sum_backward`).
+:func:`gather_scale_sum` is the same file's fused forward: it gathers,
+scales and sums each edge's row of ``x`` without writing a message.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import threading
 
 import torch
 
-from repro_torch.kernels.segment_sum.ref import (segment_sum_grad_ref,
+from repro_torch.kernels.segment_sum.ref import (gather_scale_sum_ref,
+                                                segment_sum_grad_ref,
                                                 segment_sum_ref)
 
 _launch_lock = threading.Lock()
@@ -198,15 +201,88 @@ def segment_sum(messages: torch.Tensor, segment_ids: torch.Tensor,
     backward is the gather kernel (:func:`segment_sum_backward`), on the
     CPU autograd differentiates the plain version.
     ``segment_sum.launches`` counts calls that launched the forward
-    kernel (one per call, whatever CUDA kernels the design runs),
-    ``segment_sum.grad_launches`` the backward's launches, and nothing
-    else adds to either.
+    kernel (one per call, whatever CUDA kernels the design runs) and
+    those of the fused forward (:func:`gather_scale_sum`, also counted on
+    ``segment_sum.gather_launches``), ``segment_sum.grad_launches`` the
+    backward's launches, and nothing else adds to either.
     """
     return _segment_sum(messages, segment_ids, num_segments, None)
 
 
 segment_sum.launches = 0
 segment_sum.grad_launches = 0
+segment_sum.gather_launches = 0
+
+
+def gather_scale_sum(x: torch.Tensor, src: torch.Tensor,
+                     weights: torch.Tensor, dst: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """``segment_sum(gather(x, src) * weights[:, None], dst,
+    num_segments)`` without the E x D messages: the rows of ``x[NX, D]``
+    by ``src[E]`` (an id at or above NX reads row NX - 1, a negative one
+    contributes nothing), each scaled by its edge's weight, summed by
+    ``dst[E]`` (ids outside ``[0, num_segments)`` dropped) into float32
+    ``[num_segments, D]``; ``src`` and ``dst`` are both int32 or both
+    int64.
+
+    A CUDA tensor goes through the fused kernel (``k2_gather_atomic``),
+    in the vector width :func:`grad_vector_width` picks for ``x`` and the
+    zero-filled output, or raises: ``x`` and ``weights`` must be float32
+    and need no gradient under grad mode (the kernel has no backward).
+    Each product is the unfused chain's single f32 multiply; the adds
+    are atomics, in an order that varies from run to run.  A CPU tensor
+    takes the plain version, :func:`gather_scale_sum_ref`, bit for bit
+    the unfused chain's.  A call that launches the kernel (E x D x N > 0)
+    counts once on ``segment_sum.launches`` (it is K2's forward) and once
+    on ``segment_sum.gather_launches``; nothing else adds to the latter.
+    """
+    if x.ndim != 2 or src.ndim != 1 or dst.ndim != 1 or weights.ndim != 1:
+        raise ValueError("x must be [NX, D], src, dst and weights [E]")
+    e = src.shape[0]
+    if not dst.shape[0] == weights.shape[0] == e:
+        raise ValueError("E mismatch between src, dst and weights")
+    if not (x.is_floating_point() and weights.is_floating_point()):
+        raise TypeError(f"x and weights must be floating point, got "
+                        f"{x.dtype} and {weights.dtype}")
+    for name, ids in (("src", src), ("dst", dst)):
+        if ids.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got "
+                            f"{ids.dtype}")
+    if src.dtype != dst.dtype:
+        raise TypeError(f"src and dst must share a dtype, got {src.dtype} "
+                        f"and {dst.dtype}")
+    num_segments = int(num_segments)
+    if not 0 <= num_segments < 2 ** 31:
+        raise ValueError(f"num_segments must be in [0, 2^31), got "
+                         f"{num_segments}")
+    if len({t.device for t in (x, src, weights, dst)}) != 1:
+        raise ValueError(f"x on {x.device}, src on {src.device}, weights "
+                         f"on {weights.device}, dst on {dst.device}")
+    if e and not x.shape[0]:
+        raise ValueError(f"{e} edges gather from an x of no rows")
+    if not x.is_cuda:
+        return gather_scale_sum_ref(x, src, weights, dst, num_segments)
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or weights.requires_grad):
+        raise ValueError("the fused kernel has no backward: x and weights "
+                         "must not require grad under grad mode")
+    if x.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError(f"the fused kernel takes float32 x and weights, got "
+                        f"{x.dtype} and {weights.dtype}")
+    x = x.contiguous()
+    d = x.shape[1]
+    out = torch.zeros((num_segments, d), dtype=torch.float32,
+                      device=x.device)
+    if e * d * num_segments:
+        from repro_torch.kernels.segment_sum.kernel import \
+            gather_scale_sum_cuda
+        gather_scale_sum_cuda(x, src.contiguous(), dst.contiguous(),
+                              weights.contiguous(), out,
+                              grad_vector_width(d, x, out))
+        with _launch_lock:
+            segment_sum.launches += 1
+            segment_sum.gather_launches += 1
+    return out
 
 
 def _segment_sum_design(messages: torch.Tensor, segment_ids: torch.Tensor,

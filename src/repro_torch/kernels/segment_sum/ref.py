@@ -41,3 +41,19 @@ def segment_sum_grad_ref(grad_out: torch.Tensor, segment_ids: torch.Tensor,
     valid = (segment_ids >= 0) & (segment_ids < num_segments)
     out[valid] = grad_out.float()[segment_ids[valid].long()]
     return out
+
+
+def gather_scale_sum_ref(x: torch.Tensor, src: torch.Tensor,
+                         weights: torch.Tensor, dst: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """The fused gather, scale and sum in plain ops:
+    :func:`segment_sum_ref` of ``x``'s rows gathered by ``src`` (an id at
+    or above ``x.shape[0]`` reads the last row, a negative one a zero
+    row, as the GNN gather does) times ``weights[:, None]``, by ``dst``.
+
+    x: float[NX, D]; src, dst: int[E]; weights: float[E]; returns
+    float32[num_segments, D] on x's device.
+    """
+    rows = x[src.clamp(0, max(x.shape[0] - 1, 0))]
+    msgs = torch.where((src >= 0)[:, None], rows, 0) * weights[:, None]
+    return segment_sum_ref(msgs, dst, num_segments)

@@ -2,7 +2,8 @@
 n_layers=2, d_hidden=16, mean/sym-normalized aggregation.
 
 SpMM regime:  H' = sigma( D^-1/2 (A+I) D^-1/2 H W )  realized as
-gather(src) -> per-edge scale -> segment-sum -> dense W.
+gather(src) -> per-edge scale -> segment-sum -> dense W (one pass on the
+card where H needs no gradient: ``layers.weighted_scatter_sum``).
 
 The parameters are a plain dict with the JAX package's keys ``w0, b0,
 w1, b1, ...`` (:func:`repro_torch.convert.gcn_params_from_numpy` carries
@@ -64,12 +65,11 @@ def forward(params: dict, batch: dict, cfg: GCNConfig) -> torch.Tensor:
     for i in range(cfg.n_layers):
         if cfg.transform_first and params[f"w{i}"].shape[1] < x.shape[1]:
             x = x @ params[f"w{i}"]
-            msgs = L.gather(x, src) * w_edge[:, None]
-            x = (L.scatter_sum(msgs, dst, n) + x * self_w[:, None]
-                 + params[f"b{i}"])
+            x = (L.weighted_scatter_sum(x, src, w_edge, dst, n)
+                 + x * self_w[:, None] + params[f"b{i}"])
         else:
-            msgs = L.gather(x, src) * w_edge[:, None]
-            agg = L.scatter_sum(msgs, dst, n) + x * self_w[:, None]
+            agg = (L.weighted_scatter_sum(x, src, w_edge, dst, n)
+                   + x * self_w[:, None])
             x = agg @ params[f"w{i}"] + params[f"b{i}"]
         if i < cfg.n_layers - 1:
             x = torch.relu(x)

@@ -9,7 +9,9 @@ messages require grad, its backward kernel), on a CPU tensor its plain
 version.  ``scatter_std`` is two ``scatter_mean``s, so both its sums go
 through the kernel too.  So does the gradient of :func:`gather` in a
 training step on the card: a segment sum of the gradient rows by the
-gathered ids, on K2's forward (``_Gather``).  ``scatter_max`` /
+gathered ids, on K2's forward (``_Gather``).  Where no gradient is
+needed, :func:`weighted_scatter_sum` gathers, scales and sums in one
+pass on the card (K2's fused forward).  ``scatter_max`` /
 ``scatter_min`` are the JAX package's XLA ``segment_max``, not a Pallas
 kernel, and here ``index_reduce`` (``amax``): it takes the 1-D ids
 (``scatter_reduce`` would need an index as wide as the messages) and,
@@ -23,7 +25,8 @@ import threading
 
 import torch
 
-from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.kernels.segment_sum import (gather_scale_sum, plan,
+                                             segment_sum)
 from repro_torch.obs.trace import profiler_range
 
 _count_lock = threading.Lock()
@@ -97,6 +100,38 @@ def scatter_sum(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
     """
     out = segment_sum(messages, dst, n_nodes)
     return out if use_kernel else out.to(messages.dtype)
+
+
+def weighted_scatter_sum(x: torch.Tensor, src: torch.Tensor,
+                         w: torch.Tensor, dst: torch.Tensor,
+                         n_nodes: int) -> torch.Tensor:
+    """``scatter_sum(gather(x, src) * w[:, None], dst, n_nodes)``: the
+    rows of ``x`` by ``src``, each scaled by its edge's weight, summed by
+    ``dst``.
+
+    On the card, where neither ``x`` nor ``w`` needs a gradient under
+    grad mode (GCN's layer 0 in training, every layer served), both are
+    float32, ``src`` and ``dst`` share a dtype and :func:`plan` picks
+    ``atomic`` for the sum, this is K2's fused forward
+    (:func:`gather_scale_sum`): the same products and sums without the
+    E x D gather, zero-fill and product passes.  Every other call, the
+    CPU path among them, is :func:`weighted_scatter_sum_unfused`."""
+    if (x.is_cuda and x.dtype == w.dtype == torch.float32
+            and src.dtype == dst.dtype
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad))
+            and plan(src.shape[0], x.shape[1], n_nodes) == "atomic"):
+        return gather_scale_sum(x, src, w, dst, n_nodes)
+    return weighted_scatter_sum_unfused(x, src, w, dst, n_nodes)
+
+
+def weighted_scatter_sum_unfused(x: torch.Tensor, src: torch.Tensor,
+                                 w: torch.Tensor, dst: torch.Tensor,
+                                 n_nodes: int) -> torch.Tensor:
+    """:func:`weighted_scatter_sum` as the gather, its weights' product
+    and the sum, each through this module's seam (:func:`gather`,
+    :func:`scatter_sum`): the fused forward's fallback and yardstick."""
+    return scatter_sum(gather(x, src) * w[:, None], dst, n_nodes)
 
 
 def scatter_mean(messages: torch.Tensor, dst: torch.Tensor,

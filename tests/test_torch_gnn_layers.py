@@ -296,3 +296,199 @@ def test_gather_backward_counts_and_names_only_launches():
                   if e.name == "gnn.gather.backward"]
         assert ranges == (["gnn.gather.backward"] if ids.numel() else [])
     assert port_layers.gather.grad_launches == before
+
+
+# The fused gather, scale and sum (``weighted_scatter_sum``): on the CPU
+# always the unfused expression, bit for bit; on the card the fused
+# kernel only where no gradient is needed.
+FUSED_KINDS = ("padding", "ids_at_or_above_n", "negative_dst", "hubs",
+               "no_edges", "one_column", "no_segments", "no_rows")
+
+
+def _fused_case(kind: str, ids_dtype):
+    """(x f32[NX, D], src, w f32[E], dst, n) for one case: random
+    floats, so the bits of every product and sum show."""
+    rng = np.random.default_rng(40 + FUSED_KINDS.index(kind))
+    nx, e, d, n = 12, 300, 5, 12
+    src, dst = rng.integers(0, nx, e), rng.integers(0, n, e)
+    if kind == "padding":
+        src[rng.random(e) < 0.3] = -1
+        dst[rng.random(e) < 0.2] = -1
+    elif kind == "ids_at_or_above_n":       # src reads row NX - 1, dst drops
+        src[::3] = nx + rng.integers(0, 5, src[::3].size)
+        dst[1::4] = n + rng.integers(0, 5, dst[1::4].size)
+    elif kind == "negative_dst":
+        drop = rng.random(e) < 0.4
+        dst[drop] = -rng.integers(1, 4, int(drop.sum()))
+        src[::7] = -2
+    elif kind == "hubs":
+        src[rng.random(e) < 0.5], dst[rng.random(e) < 0.5] = 3, n - 1
+    elif kind == "no_edges":
+        src, dst = src[:0], dst[:0]
+    elif kind == "one_column":
+        d = 1
+    elif kind == "no_segments":             # every dst dropped
+        n = 0
+    elif kind == "no_rows":
+        nx, src, dst = 0, src[:0], dst[:0]
+    x = torch.from_numpy(rng.standard_normal((nx, d)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(src.size).astype(np.float32))
+    return (x, torch.from_numpy(src).to(ids_dtype), w,
+            torch.from_numpy(dst).to(ids_dtype), n)
+
+
+def _unfused(x, src, w, dst, n):
+    """GCN's aggregation as the model wrote it before the seam."""
+    return port_layers.scatter_sum(port_layers.gather_plain(x, src)
+                                   * w[:, None], dst, n)
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", FUSED_KINDS)
+def test_weighted_scatter_sum_is_the_unfused_expression(kind, ids_dtype):
+    """On the CPU the seam, the op and its plain version all give the
+    unfused chain's bits: -1 and other negative src send nothing, src at
+    or above NX read row NX - 1, dst outside [0, N) are dropped; no
+    edge, one column, no segment and no row of x give the right
+    shape; nothing counts as a launch."""
+    from repro_torch.kernels.segment_sum import (gather_scale_sum,
+                                                 gather_scale_sum_ref)
+
+    x, src, w, dst, n = _fused_case(kind, ids_dtype)
+    want = _unfused(x, src, w, dst, n)
+    before = segment_sum.launches, segment_sum.gather_launches
+    got = port_layers.weighted_scatter_sum(x, src, w, dst, n)
+    assert (segment_sum.launches, segment_sum.gather_launches) == before
+    assert got.dtype == torch.float32 and got.shape == (n, x.shape[1])
+    assert torch.equal(got, want)
+    assert torch.equal(gather_scale_sum(x, src, w, dst, n), want)
+    assert torch.equal(gather_scale_sum_ref(x, src, w, dst, n), want)
+    if kind == "ids_at_or_above_n":        # the clamped reads land
+        assert want.abs().sum() > 0
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card: the seam's choice of
+    path, seen without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("how,fused", [
+    ("no_grad_needed", True), ("x_needs_grad", False), ("w_needs_grad", False),
+    ("no_grad_mode", True), ("float64", False), ("plan_rows", False),
+    ("mixed_id_dtypes", False), ("cpu", False)])
+def test_weighted_scatter_sum_takes_the_fused_op_only_without_grad(
+        monkeypatch, how, fused):
+    """On the card the seam takes K2's fused forward for float32 inputs
+    that need no gradient under grad mode (also tensors that do, under
+    ``no_grad``) where ``plan`` picks ``atomic``; a gradient, float64,
+    src and dst of two id dtypes or a ``rows`` plan (wide rows, few
+    edges) keep the unfused expression, and so does every CPU tensor."""
+    calls = []
+    monkeypatch.setattr(port_layers, "gather_scale_sum",
+                        lambda *a: calls.append("fused") or "fused")
+    monkeypatch.setattr(port_layers, "scatter_sum",
+                        lambda *a: calls.append("plain") or "plain")
+    d = 1433 if how == "plan_rows" else 16
+    dtype = torch.float64 if how == "float64" else torch.float32
+    x = torch.randn(10, d, dtype=dtype)
+    w = torch.randn(30, dtype=dtype)
+    if how != "cpu":
+        x, w = x.as_subclass(_OnCard), w.as_subclass(_OnCard)
+    if how in ("x_needs_grad", "no_grad_mode"):
+        x.requires_grad_()
+    if how == "w_needs_grad":
+        w.requires_grad_()
+    ids = torch.randint(0, 10, (30,))
+    dst = ids.int() if how == "mixed_id_dtypes" else ids
+    with torch.set_grad_enabled(how != "no_grad_mode"):
+        out = port_layers.weighted_scatter_sum(x, ids, w, dst, 10)
+    assert calls == [out] == ["fused" if fused else "plain"]
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", ["padding", "ids_at_or_above_n", "hubs"])
+def test_weighted_scatter_sum_gradients_are_the_unfused_ones(kind,
+                                                             ids_dtype):
+    """Gradients of x and w through the seam on the CPU equal autograd of
+    the unfused expression bit for bit."""
+    x, src, w, dst, n = _fused_case(kind, ids_dtype)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (n, x.shape[1])).astype(np.float32))
+
+    def grads(fn):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        return torch.autograd.grad((fn(xg, src, wg, dst, n) * g).sum(),
+                                   (xg, wg))
+
+    for got, want in zip(grads(port_layers.weighted_scatter_sum),
+                         grads(_unfused)):
+        assert torch.equal(got, want)
+
+
+def _gcn_forward_unfused(params, batch, cfg):
+    """``gcn.forward`` with each layer's aggregation written as the
+    gather, the product and the sum, as the model had it before the
+    fused seam."""
+    from repro_torch.models.gnn import layers as L
+
+    x = batch["x"].to(cfg.dtype)
+    src, dst = batch["edge_src"], batch["edge_dst"]
+    n = x.shape[0]
+    deg = L.degree(dst, n) + 1.0
+    dn = torch.rsqrt(deg)
+    w_edge = (L.gather(dn[:, None], src)[:, 0]
+              * L.gather(dn[:, None], dst)[:, 0])
+    self_w = 1.0 / deg
+    for i in range(cfg.n_layers):
+        if cfg.transform_first and params[f"w{i}"].shape[1] < x.shape[1]:
+            x = x @ params[f"w{i}"]
+            msgs = L.gather(x, src) * w_edge[:, None]
+            x = (L.scatter_sum(msgs, dst, n) + x * self_w[:, None]
+                 + params[f"b{i}"])
+        else:
+            msgs = L.gather(x, src) * w_edge[:, None]
+            agg = L.scatter_sum(msgs, dst, n) + x * self_w[:, None]
+            x = agg @ params[f"w{i}"] + params[f"b{i}"]
+        if i < cfg.n_layers - 1:
+            x = torch.relu(x)
+    return x
+
+
+@pytest.mark.parametrize("transform_first", [False, True])
+def test_gcn_forward_and_gradients_are_unchanged_on_the_cpu(transform_first):
+    """GCN's logits and every parameter's gradient on the CPU, through
+    the fused seam, equal the unfused forward's bit for bit (padding and
+    ids at or above N in the edge list)."""
+    import dataclasses
+
+    from repro_torch.models.gnn import gcn
+
+    rng = np.random.default_rng(11)
+    n, e = 40, 400
+    cfg = dataclasses.replace(gcn.GCNConfig(d_in=24, n_classes=5),
+                              transform_first=transform_first)
+    src, dst = rng.integers(-1, n + 2, e), rng.integers(-1, n + 2, e)
+    batch = {"x": torch.from_numpy(rng.standard_normal(
+                 (n, cfg.d_in)).astype(np.float32)),
+             "edge_src": torch.from_numpy(src).to(torch.int32),
+             "edge_dst": torch.from_numpy(dst).to(torch.int32)}
+    params = gcn.init_params(cfg, torch.Generator().manual_seed(3))
+    for k in params:                        # biases off zero
+        params[k] = params[k] + 0.1 * torch.randn(
+            params[k].shape, generator=torch.Generator().manual_seed(4))
+
+    def run(fwd):
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        logits = fwd(p, batch, cfg)
+        g = torch.autograd.grad((logits * logits).sum(), list(p.values()))
+        return logits.detach(), g
+
+    logits, grads = run(gcn.forward)
+    want_logits, want_grads = run(_gcn_forward_unfused)
+    assert torch.equal(logits, want_logits)
+    for got, want in zip(grads, want_grads):
+        assert torch.equal(got, want)

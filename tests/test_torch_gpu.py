@@ -458,6 +458,162 @@ def test_full_graph_step_sums_the_gathers_gradient_on_k2(cuda, smoke, arch):
     smoke.first_step_pair(lambda p: mod.loss_fn(p, batch, cfg), params)
 
 
+def _fused_inputs(cuda, d, offset, ids_dtype, seed):
+    """x f32[NX, d] (a view ``offset`` floats past an aligned base), w
+    f32[E] and unsorted hub ids: a third of the edges on five rows of x
+    and five segments, -1 and other negative ids, ids at or above NX and
+    N (int64 ones of 2^32 among them)."""
+    rng = np.random.default_rng(seed)
+    nx, n, e = 3000, 2900, 40000
+    src, dst = rng.integers(-2, nx + 4, e), rng.integers(-2, n + 4, e)
+    hubs = rng.random(e) < 1 / 3
+    src[hubs], dst[hubs] = (rng.integers(0, 5, int(hubs.sum())),
+                            rng.integers(0, 5, int(hubs.sum())))
+    if ids_dtype == torch.int64:
+        src[7::1000], dst[11::1000] = 2 ** 32, 2 ** 32 + 3
+    base = torch.randn(nx * d + offset, device=cuda)
+    x = base[offset:].view(nx, d)
+    w = torch.from_numpy(rng.standard_normal(e).astype(np.float32)).to(cuda)
+    return (x, torch.from_numpy(src).to(cuda, ids_dtype), w,
+            torch.from_numpy(dst).to(cuda, ids_dtype), n)
+
+
+def _assert_within_f32_rounding(got, x, src, w, dst, n):
+    """``got`` against the fused forward's plain version in float64: each
+    row within the f32 rounding of its products and of its adds in any
+    order, ``k * 2^-23 * sum|terms|`` for a row of k terms; returns k."""
+    from repro_torch.kernels.segment_sum import gather_scale_sum_ref
+
+    want = gather_scale_sum_ref(x.double(), src, w.double(), dst, n)
+    terms = gather_scale_sum_ref(x.double().abs(), src, w.double().abs(),
+                                 dst, n)
+    k = gather_scale_sum_ref(torch.ones(x.shape[0], 1, device=x.device,
+                                        dtype=torch.float64), src,
+                             torch.ones_like(w, dtype=torch.float64), dst, n)
+    assert ((got.double() - want).abs() <= k * 2.0 ** -23 * terms).all()
+    return k
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("d", [1, 16, 75, 100, 1433])
+def test_fused_kernel_equals_the_plain_version_in_float64(cuda, d, offset,
+                                                          ids_dtype):
+    """K2's fused forward (``k2_gather_atomic``) against its plain version
+    in float64 on unsorted hub ids with padding and ids at or above NX
+    and N: each row within the f32 rounding of its products and of its
+    adds in any order, ``k * 2^-23 * sum|terms|`` for a row of k terms;
+    at every vector width (D 16 and 100 aligned take 4, two floats off
+    2, one float off and odd widths 1)."""
+    from repro_torch.kernels.segment_sum import gather_scale_sum
+
+    x, src, w, dst, n = _fused_inputs(cuda, d, offset, ids_dtype, d + offset)
+    out = torch.zeros(n, d, device=cuda)
+    want_vec = 4 if d % 4 == 0 and offset == 0 else \
+        2 if d % 2 == 0 and offset % 2 == 0 else 1
+    assert grad_vector_width(d, x, out) == want_vec
+    before = segment_sum.launches, segment_sum.gather_launches
+    got = gather_scale_sum(x, src, w, dst, n)
+    torch.cuda.synchronize()
+    assert (segment_sum.launches - before[0],
+            segment_sum.gather_launches - before[1]) == (1, 1)
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    k = _assert_within_f32_rounding(got, x, src, w, dst, n)
+    assert (k[:5] > 1000).all()             # the hubs drew their edges
+
+
+def test_fused_kernel_counts_calls_with_work_only(cuda):
+    """``segment_sum.gather_launches`` and ``segment_sum.launches`` each
+    rise by one a call with work and by none for E, D or N of 0; the
+    seam's unfused path (x needs a gradient) adds nothing to the fused
+    count; a float64 input, an x that needs a gradient and an x of no
+    rows under edges are refused before any launch."""
+    from repro_torch.kernels.segment_sum import gather_scale_sum
+    from repro_torch.models.gnn.layers import weighted_scatter_sum
+
+    x, src, w, dst, n = _fused_inputs(cuda, 16, 0, torch.int32, 1)
+    for args, work in (((x, src, w, dst, n), 1),
+                       ((x, src[:0], w[:0], dst[:0], n), 0),
+                       ((x[:, :0], src, w, dst, n), 0),
+                       ((x, src, w, dst, 0), 0)):
+        before = segment_sum.launches, segment_sum.gather_launches
+        out = gather_scale_sum(*args)
+        torch.cuda.synchronize()
+        assert (segment_sum.launches - before[0],
+                segment_sum.gather_launches - before[1]) == (work, work)
+        assert out.shape == (args[4], args[0].shape[1])
+        if not work:
+            assert not out.any()
+    before = segment_sum.launches, segment_sum.gather_launches
+    xg = x.clone().requires_grad_()
+    weighted_scatter_sum(xg, src, w, dst, n).sum().backward()
+    assert segment_sum.gather_launches == before[1]
+    assert segment_sum.launches - before[0] == 2     # the sum, the gather's
+    for bad, err in (((x.double(), src, w.double(), dst, n), TypeError),
+                     ((xg, src, w, dst, n), ValueError),
+                     ((x[:0], src, w, dst, n), ValueError)):
+        with pytest.raises(err):
+            gather_scale_sum(*bad)
+    assert segment_sum.gather_launches == before[1]
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_fused_kernel_makes_no_host_sync(cuda, ids_dtype):
+    """The fused forward at the GCN cell's width runs without a host
+    sync."""
+    from repro_torch.kernels.segment_sum import gather_scale_sum
+
+    x, src, w, dst, n = _fused_inputs(cuda, 100, 0, ids_dtype, 2)
+    gather_scale_sum(x, src, w, dst, n)                  # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = gather_scale_sum(x, src, w, dst, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _assert_within_f32_rounding(got, x, src, w, dst, n)
+
+
+def test_gcn_step_takes_the_fused_kernel_at_layer_0(cuda, smoke):
+    """One full-graph GCN loss and its gradients at the cell's feature
+    width (D 100, rmat(9, 8)): layer 0 (features that need no gradient)
+    launches ``k2_gather_atomic`` once, layer 1 keeps its K2 sum, its
+    gather's backward on K2 and its ``k2_grad``; K2 launches as the
+    requests ask, and the loss within chip_smoke's training tolerance of
+    the plain path."""
+    from repro_torch.configs.gcn_cora import make_config
+    from repro_torch.launch.data_gnn import full_graph_batch
+    from repro_torch.models.gnn import gcn
+    from repro_torch.models.gnn.layers import gather
+
+    cfg = make_config(d_in=100, n_classes=4)
+    batch = full_graph_batch("gcn-cora", cfg, rmat(9, 8, seed=2),
+                             np.random.default_rng(0), n_classes=4,
+                             device=cuda)
+    params = gcn.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    before = (segment_sum.launches, segment_sum.gather_launches,
+              segment_sum.grad_launches, gather.grad_launches)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with smoke.k2_as_asked("gcn-cora D 100") as asked:
+            smoke.loss_and_grads(lambda p: gcn.loss_fn(p, batch, cfg),
+                                 params)
+        torch.cuda.synchronize()
+    # the degree, layer 0 fused, layer 1's sum, its gather's backward
+    assert (segment_sum.launches - before[0],
+            segment_sum.gather_launches - before[1],
+            segment_sum.grad_launches - before[2],
+            gather.grad_launches - before[3]) == (4, 1, 1, 1)
+    assert asked == smoke.KernelRequests(sums=3, grad_sums=1,
+                                         grad_gathers=1)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("k2_gather_atomic" in x for x in names) == 1
+    assert sum("k2_grad" in x for x in names) == 1
+    smoke.first_step_pair(lambda p: gcn.loss_fn(p, batch, cfg), params)
+
+
 def test_gcn_serving_goes_through_both_kernels(cuda, smoke, tmp_path):
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import make_gnn_server

@@ -331,3 +331,63 @@ def test_backward_width_entry_on_cpu_is_the_plain_version():
     assert segment_sum.grad_launches == before
     with pytest.raises(ValueError, match="vec must be one of"):
         _segment_sum_backward_vec(g, ids, 30, 3)
+
+
+# --- K2's fused forward, gather_scale_sum, on the CPU ---
+
+from repro_torch.kernels.segment_sum import gather_scale_sum  # noqa: E402
+
+_I32 = torch.int32
+
+
+@pytest.mark.parametrize("args,err,match", [
+    ((torch.zeros(4), torch.zeros(3, dtype=_I32), torch.zeros(3),
+      torch.zeros(3, dtype=_I32), 2), ValueError, "\\[NX, D\\]"),
+    ((torch.zeros(4, 2), torch.zeros(3, dtype=_I32), torch.zeros(2),
+      torch.zeros(3, dtype=_I32), 2), ValueError, "E mismatch"),
+    ((torch.zeros(4, 2, dtype=_I32), torch.zeros(3, dtype=_I32),
+      torch.zeros(3), torch.zeros(3, dtype=_I32), 2), TypeError,
+     "floating"),
+    ((torch.zeros(4, 2), torch.zeros(3), torch.zeros(3),
+      torch.zeros(3, dtype=_I32), 2), TypeError, "src must be int32"),
+    ((torch.zeros(4, 2), torch.zeros(3, dtype=_I32), torch.zeros(3),
+      torch.zeros(3, dtype=torch.int16), 2), TypeError,
+     "dst must be int32"),
+    ((torch.zeros(4, 2), torch.zeros(3, dtype=_I32), torch.zeros(3),
+      torch.zeros(3, dtype=torch.int64), 2), TypeError,
+     "share a dtype"),
+    ((torch.zeros(4, 2), torch.zeros(3, dtype=_I32), torch.zeros(3),
+      torch.zeros(3, dtype=_I32), -1), ValueError, "num_segments"),
+    ((torch.zeros(0, 2), torch.zeros(3, dtype=_I32), torch.zeros(3),
+      torch.zeros(3, dtype=_I32), 2), ValueError, "no rows"),
+    ((torch.zeros(4, 2), torch.zeros(3, dtype=_I32),
+      torch.zeros(3, device="meta"), torch.zeros(3, dtype=_I32), 2),
+     ValueError, "weights on meta"),
+])
+def test_gather_scale_sum_refuses_bad_arguments(args, err, match):
+    """The fused op checks its arguments as the segment sum does, before
+    any path: shapes, dtypes, the segment count, one device, and rows of
+    x to gather from."""
+    before = segment_sum.launches, segment_sum.gather_launches
+    with pytest.raises(err, match=match):
+        gather_scale_sum(*args)
+    assert (segment_sum.launches, segment_sum.gather_launches) == before
+
+
+def test_gather_scale_sum_on_the_cpu_is_differentiable_and_launches_none():
+    """On the CPU the op is its plain version, which autograd
+    differentiates (only the card's kernel has no backward); no count
+    moves."""
+    x = torch.randn(5, 3, requires_grad=True)
+    w = torch.randn(6, requires_grad=True)
+    src = torch.tensor([0, 4, -1, 9, 4, 2])
+    dst = torch.tensor([1, 1, 0, 3, -1, 7])
+    before = segment_sum.launches, segment_sum.gather_launches
+    gx, gw = torch.autograd.grad(gather_scale_sum(x, src, w, dst, 4).sum(),
+                                 (x, w))
+    assert (segment_sum.launches, segment_sum.gather_launches) == before
+    # x's rows 4 (src 4, and 9 clamped) and 0 reach a kept dst
+    assert torch.equal(gx.sum(1) != 0, torch.tensor([True, False, False,
+                                                     False, True]))
+    assert torch.equal(gw != 0, torch.tensor([True, True, False, True,
+                                              False, False]))

@@ -8,6 +8,7 @@ the error is 0), and raises on any difference."""
 
 from _torch_env import load_chip_smoke  # first: one torch thread
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -820,6 +821,111 @@ def test_kernel_requests_count_what_a_step_asks(smoke, monkeypatch):
     assert asked == smoke.KernelRequests(sums=2, grad_sums=1, grad_gathers=1)
     assert asked.launches() == {"k2": 3, "k2_grad": 1}
     assert not none.any() and x.grad is not None and m.grad is not None
+
+
+@pytest.mark.parametrize("edges", [6, 0])
+def test_kernel_requests_count_a_fused_sum_as_one_sum(smoke, monkeypatch,
+                                                      edges):
+    """The fused gather, scale and sum at the seam the models call
+    (``layers.gather_scale_sum``), counted on CPU tensors with the device
+    check made true: one forward request with work, none without; under
+    ``plain_segment_sum`` the same seam runs the unfused chain on the
+    plain segment sum it was given."""
+    from repro_torch.models.gnn import layers
+
+    monkeypatch.setattr(smoke, "_on_card", lambda t: True)
+    x, w = torch.randn(4, 3), torch.randn(edges)
+    src = torch.arange(edges) % 4
+    with smoke.kernel_requests() as asked:
+        got = layers.gather_scale_sum(x, src, w, src, 4)
+    assert asked == smoke.KernelRequests(sums=int(edges > 0))
+    assert asked.launches() == {"k2": int(edges > 0), "k2_grad": 0}
+    seen = []
+
+    def recording(m, ids, n):
+        seen.append(tuple(m.shape))
+        return smoke.segment_sum_ref(m, ids, n)
+
+    with smoke.plain_segment_sum(recording):
+        plain = layers.gather_scale_sum(x, src, w, src, 4)
+    assert seen == [(edges, 3)] and torch.equal(plain, got)
+
+
+def test_fresh_launch_counter_loads_chip_smoke_in_a_new_process(smoke):
+    """The new process :func:`fresh_k2_launches` starts loads this file as
+    its script does, up to the first launch: the dataclasses in it need
+    the module registered under its name."""
+    import subprocess
+    import sys
+
+    head = smoke._FRESH_K2_LAUNCHES.split("out = {}")[0]
+    done = subprocess.run(
+        [sys.executable, "-c", head + "print(cs.KernelRequests(sums=2))",
+         smoke.__file__], capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert done.stdout.strip().splitlines()[-1] == \
+        "KernelRequests(sums=2, grad_sums=0, grad_gathers=0)"
+
+
+@pytest.mark.parametrize("fault", ["drop_last_edge", "stray_count"])
+def test_fused_check_detects_a_planted_fault(smoke, monkeypatch, fault):
+    """``check_gather_scale_sum`` (the fused kernel held to its plain
+    version in chunks at the GCN cell's shape) fails on a fused op that
+    loses an edge, and on one whose launch count moves where no kernel
+    ran."""
+    real = smoke.gather_scale_sum
+
+    def faulty(x, src, w, dst, n):
+        if fault == "drop_last_edge":
+            dst = dst.clone()
+            dst[-1] = -1
+        else:
+            smoke.segment_sum.gather_launches += 1
+        return real(x, src, w, dst, n)
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(-4, 5, (30, 100)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-2, 3, 500).astype(np.float32))
+    src = torch.from_numpy(rng.integers(-1, 33, 500).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(-1, 33, 500).astype(np.int32))
+    want, err = smoke.check_gather_scale_sum(x, src, w, dst, 30)  # sound
+    assert err == 0.0 and want.shape == (30, 100)
+    monkeypatch.setattr(smoke, "gather_scale_sum", faulty)
+    with pytest.raises(AssertionError, match="gather_scale_sum"):
+        smoke.check_gather_scale_sum(x, src, w, dst, 30)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, 500, 10_000])
+def test_plain_fused_version_in_chunks_is_one_call(smoke, chunk):
+    """The plain version the fused kernel is held to at the cell's size,
+    summed over chunks of edges, equals one call of
+    ``gather_scale_sum_ref`` on small integers, at every chunk size
+    (one edge, a ragged last chunk, a chunk past E)."""
+    from repro_torch.kernels.segment_sum import gather_scale_sum_ref
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-4, 5, (30, 6)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-2, 3, 500).astype(np.float32))
+    src = torch.from_numpy(rng.integers(-1, 33, 500).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(-1, 33, 500).astype(np.int32))
+    want = gather_scale_sum_ref(x, src, w, dst, 30)
+    got = smoke.plain_gather_scale_sum(x, src, w, dst, 30, chunk=chunk)
+    assert want.abs().sum() > 0 and torch.equal(got, want)
+
+
+def test_fused_timing_reads_the_cells_configuration(smoke):
+    """The fused kernel's timing takes its width, edge law and node count
+    from the GCN cell's own configuration file, and its own-bytes bound
+    counts x, the three edge streams and the sums once each."""
+    with open(smoke.GCN_CELL_CONFIG) as f:
+        cfg = json.load(f)
+    assert cfg["name"] == "gcn-cora.ogb-products"
+    assert (cfg["d_in"], cfg["n_nodes"]) == (100, smoke.OGB_REAL[1])
+    assert 2 * cfg["undirected_edges"] <= smoke.OGB_E
+    assert {"scale", "seed"} <= cfg["edges"].keys()
+    assert smoke.fused_bytes(10, 3, 7, 5) == 4 * 7 * 3 + 12 * 10 + 4 * 5 * 3
+    assert smoke.fused_bytes(smoke.OGB_E, 100, smoke.OGB_N, smoke.OGB_N) < \
+        smoke.k2_bytes(smoke.OGB_E, 100, smoke.OGB_N, smoke.OGB_REAL[0])
 
 
 @pytest.mark.parametrize("phase", ["gnn", "train"])
